@@ -1,0 +1,41 @@
+"""repro_torch — the FedRank reproduction ported to PyTorch and CUDA (Hopper).
+
+A self-contained package beside the JAX reference ``repro``: it imports
+``torch`` and ``numpy`` and nothing of ``repro``, and mirrors its layout so
+each counterpart is easy to find:
+
+    data        synthetic datasets + Dirichlet federated partitioning (numpy)
+    models      the layers the FL tasks use (``dense_init``, ``softmax_xent``)
+    fl          device simulator, scenarios, client training, the synchronous
+                server, aggregation and the policy registry
+    core        features, the ranking Q-net, pairwise losses, double-Q
+                learning, FedRank and the random baseline
+    kernels     hand-written CUDA kernels with their plain PyTorch versions
+    convert     parameter dicts between numpy (the reference's arrays) and
+                torch
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no card and no explicit CPU request they raise instead of falling back.
+Parameters keep the reference's layout at public functions: dicts of
+``w1, b1, w2, b2, w3, b3`` with every ``w`` shaped ``(in, out)``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__version__ = "0.1.0"
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the card.  A CUDA device that is not there raises: the
+    port never quietly runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return dev

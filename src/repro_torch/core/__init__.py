@@ -1,0 +1,26 @@
+"""FedRank core: features, the ranking Q-net, pairwise losses, double-Q
+learning, the FedRank policy and the random baseline."""
+from repro_torch.core.baselines import RandomPolicy
+from repro_torch.core.fedrank import FedRankPolicy, make_fedrank_variant
+from repro_torch.core.features import (
+    FEATURE_DIM,
+    STATE_DIM,
+    FeatureSet,
+    Paper6FeatureSet,
+    TelemetryFeatureSet,
+    available_feature_sets,
+    featurize,
+    get_feature_set,
+    register_feature_set,
+)
+from repro_torch.core.qnet import apply_qnet, hard_update, init_qnet
+from repro_torch.core.ranking import pairwise_bce, pairwise_soft_targets
+
+__all__ = [
+    "RandomPolicy", "FedRankPolicy", "make_fedrank_variant",
+    "featurize", "STATE_DIM", "FEATURE_DIM",
+    "FeatureSet", "Paper6FeatureSet", "TelemetryFeatureSet",
+    "get_feature_set", "register_feature_set", "available_feature_sets",
+    "init_qnet", "apply_qnet", "hard_update",
+    "pairwise_bce", "pairwise_soft_targets",
+]

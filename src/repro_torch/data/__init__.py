@@ -1,0 +1,14 @@
+from repro_torch.data.synthetic import (
+    SyntheticClassificationDataset,
+    make_classification_data,
+)
+from repro_torch.data.partition import dirichlet_partition, iid_partition
+from repro_torch.data.loader import FederatedData
+
+__all__ = [
+    "SyntheticClassificationDataset",
+    "make_classification_data",
+    "dirichlet_partition",
+    "iid_partition",
+    "FederatedData",
+]

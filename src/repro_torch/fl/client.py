@@ -1,0 +1,112 @@
+"""Client local training: SGD epochs, FedProx proximal term, probing epoch.
+
+A client shard is padded to a power-of-two bucket with a validity mask (the
+reference's single padding rule, kept here so both packages batch a shard the
+same way), and each epoch walks a host permutation drawn from
+``np.random.default_rng(seed)`` exactly as the reference does.  The gather by
+that permutation and every SGD step run on the params' device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+Params = Dict[str, torch.Tensor]
+ArrayLike = Union[np.ndarray, torch.Tensor]
+
+
+def _bucket_cap(n: int) -> int:
+    """Padded shard size: next power of two, minimum 8."""
+    return max(8, 1 << (n - 1).bit_length())
+
+
+def _bucket_geometry(n: int, batch_size: int) -> Tuple[int, int, int]:
+    """(cap, batch_size, n_batches) for an n-sample client shard — the single
+    source of the padding/batching rule; a diverging copy would silently
+    break parity with the reference."""
+    cap = _bucket_cap(n)
+    bs = min(batch_size, cap)
+    return cap, bs, cap // bs
+
+
+def _pad_bucket(x: torch.Tensor, y: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Zero-pad (x, y) to the bucket cap; mask is 1 on real rows."""
+    n = len(y)
+    pad = _bucket_cap(n) - n
+    xpad = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    ypad = torch.cat([y, y.new_zeros((pad,) + tuple(y.shape[1:]))])
+    mask = torch.cat([torch.ones(n, dtype=torch.float32, device=x.device),
+                      torch.zeros(pad, dtype=torch.float32, device=x.device)])
+    return xpad, ypad, mask
+
+
+def _sgd_epoch(task, params: Params, p_global: Params, x: torch.Tensor,
+               y: torch.Tensor, mask: torch.Tensor, *, lr: float,
+               batch_size: int, n_batches: int, prox_mu: float
+               ) -> Tuple[Params, torch.Tensor]:
+    """One local epoch = n_batches SGD steps; returns (params, mean loss)."""
+    names = list(params)
+    losses = []
+    for b in range(n_batches):
+        sl = slice(b * batch_size, (b + 1) * batch_size)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        p = dict(zip(names, leaves))
+        loss = task.loss(p, {"x": x[sl], "y": y[sl], "mask": mask[sl]})
+        if prox_mu > 0.0:
+            sq = sum(torch.sum(torch.square(p[k].float() - p_global[k].float()))
+                     for k in names)
+            loss = loss + 0.5 * prox_mu * sq
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            params = {k: (leaf.float() - lr * g.float()).to(leaf.dtype)
+                      for k, leaf, g in zip(names, leaves, grads)}
+        losses.append(loss.detach())
+    return params, torch.stack(losses).mean()
+
+
+def local_train(
+    task,
+    params: Params,
+    x: ArrayLike,
+    y: ArrayLike,
+    *,
+    epochs: int,
+    lr: float,
+    batch_size: int = 32,
+    prox_mu: float = 0.0,
+    seed: int = 0,
+) -> Tuple[Params, np.ndarray]:
+    """Run ``epochs`` local epochs on the params' device.  Returns (params,
+    per-epoch mean losses); losses[0] is the probing loss FedRank reports."""
+    device = next(iter(params.values())).device
+    x = torch.as_tensor(x, device=device)
+    y = torch.as_tensor(y, device=device)
+    rng = np.random.default_rng(seed)
+    xpad, ypad, mask = _pad_bucket(x, y)
+    cap, bs, nb = _bucket_geometry(len(y), batch_size)
+    p_global = params
+    losses = []
+    for _ in range(epochs):
+        perm = torch.as_tensor(rng.permutation(cap)[: nb * bs], device=device)
+        params, loss = _sgd_epoch(task, params, p_global, xpad[perm],
+                                  ypad[perm], mask[perm], lr=lr,
+                                  batch_size=bs, n_batches=nb,
+                                  prox_mu=float(prox_mu))
+        losses.append(loss)
+    if not losses:
+        return params, np.zeros(0)
+    # one device->host copy for all epochs' losses
+    return params, torch.stack(losses).double().cpu().numpy()
+
+
+def probing_epoch(task, params: Params, x: ArrayLike, y: ArrayLike, *,
+                  lr: float, batch_size: int = 32, prox_mu: float = 0.0,
+                  seed: int = 0) -> Tuple[Params, float]:
+    """The paper's "early exit" probe: exactly one local epoch; returns the
+    partially-trained params (reused if the device is selected) + probe loss."""
+    params, losses = local_train(task, params, x, y, epochs=1, lr=lr,
+                                 batch_size=batch_size, prox_mu=prox_mu, seed=seed)
+    return params, float(losses[0])

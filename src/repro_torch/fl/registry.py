@@ -1,0 +1,60 @@
+"""Selection-policy registry: build any ported policy by name.
+
+    from repro_torch.fl.registry import build_policy
+    policy = build_policy("fedrank", k=10)
+
+Registered names: ``fedavg`` / ``random`` / ``fedprox`` (uniform random K of
+N; pair ``fedprox`` with ``FLConfig.prox_mu > 0``) and ``fedrank``,
+``fedrank-I``, ``fedrank-P``, ``fedrank-IP`` (the paper's policy and its
+no-IL / no-rank-loss / plain-DQN ablations; pass ``qnet=...`` for
+pretrained Q-net weights and ``device=...`` for where a fresh Q-net lives).
+Any other name raises ``KeyError`` listing these.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+from repro_torch.fl.server import SelectionPolicy
+
+_POLICIES: Dict[str, Callable[..., SelectionPolicy]] = {}
+
+
+def _populate() -> None:
+    """Register the built-in policies on first use (``repro_torch.core``
+    imports ``repro_torch.fl``, so registering lazily keeps both packages
+    importable in either order)."""
+    if _POLICIES:
+        return
+    from repro_torch.core.baselines import RandomPolicy
+    from repro_torch.core.fedrank import make_fedrank_variant
+
+    def fedrank(variant: str):
+        def factory(qnet=None, **kw):
+            return make_fedrank_variant(variant, qnet, **kw)
+        return factory
+
+    _POLICIES.update({
+        "fedavg": lambda **kw: RandomPolicy("fedavg", **kw),
+        "random": lambda **kw: RandomPolicy("random", **kw),
+        "fedprox": lambda **kw: RandomPolicy("fedprox", **kw),
+        "fedrank": fedrank("full"),
+        "fedrank-I": fedrank("no_il"),
+        "fedrank-P": fedrank("no_rank"),
+        "fedrank-IP": fedrank("no_il_no_rank"),
+    })
+
+
+def build_policy(name: str, **kw) -> SelectionPolicy:
+    """Construct the named policy; kwargs go to its constructor."""
+    _populate()
+    try:
+        factory = _POLICIES[name]
+    except KeyError:
+        raise KeyError(f"unknown policy {name!r}; "
+                       f"registered: {available_policies()}") from None
+    return factory(**kw)
+
+
+def available_policies() -> List[str]:
+    _populate()
+    return sorted(_POLICIES)

@@ -1,0 +1,425 @@
+"""FL server: synchronous round orchestration via RoundPlan + ClientExecutor.
+
+Every round is a :class:`repro_torch.fl.engine.RoundPlan` built from the
+policy, then executed uniformly:
+
+  1. PROBE  — every device in ``plan.probe_ids`` runs ``plan.probe_epochs``
+     local epochs, revealing its state s_i = (T_comp, T_comm, E_comp,
+     E_comm, L_i, D_i); non-probing baselines skip this stage.
+  2. SELECT — the policy cuts the cohort to K survivors, then the scenario's
+     failure model decides who drops mid-round or misses the deadline.
+  3. COMPLETE — survivors run ``plan.completion_epochs`` further epochs
+     (resuming from probed params when probed) and upload their updates.
+  4. FedAvg aggregation, global eval, reward (paper Eq. 1), policy feedback.
+
+Model weights, client data and every training step live on the server's
+``device`` (the card unless ``device="cpu"``); the fleet simulator, the
+scenario RNG streams and the virtual clock stay numpy on the host, so
+cohorts, failures and the clock follow the reference exactly.
+
+Not in this package yet, and refused with ``NotImplementedError``: the
+asynchronous regime (``mode="async"``), hierarchical topologies and regions,
+attacks, run observability, trace replay and robust aggregators.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Protocol, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.data.loader import FederatedData
+from repro_torch.fl.aggregation import AGGREGATORS, robust_aggregate
+from repro_torch.fl.engine import (
+    COMPLETE_SEED_STRIDE,
+    PROBE_SEED_STRIDE,
+    ClientExecutor,
+    ClientRequest,
+    build_requests,
+    build_round_plan,
+    make_executor,
+)
+from repro_torch.fl.scenarios import build_scenario
+from repro_torch.fl.simulation import (
+    RoundSystemState,
+    plan_round_energy,
+    plan_round_latency,
+    static_estimates,
+)
+from repro_torch.fl.telemetry import DeviceTelemetry
+
+Params = Dict[str, torch.Tensor]
+
+
+def _empty_ids() -> np.ndarray:
+    return np.empty(0, dtype=np.int64)
+
+
+@dataclass
+class FLConfig:
+    n_devices: int = 100
+    k_select: int = 10
+    rounds: int = 50
+    l_ep: int = 5                 # local epochs per round (paper setting)
+    local_batch: int = 32
+    lr: float = 0.05
+    alpha: float = 2.0            # latency penalty exponent (paper: 2)
+    beta: float = 2.0             # energy penalty exponent (paper: 2)
+    t_budget: Optional[float] = None   # developer-preferred round duration T
+    e_budget: Optional[float] = None   # developer-preferred round energy E
+    prox_mu: float = 0.0          # >0 => FedProx local objective
+    scenario: str = "uniform"     # fleet environment (repro_torch.fl.scenarios)
+    executor: str = "sequential"  # client-executor name (repro_torch.fl.engine)
+    feature_set: str = "paper6"   # probe-state feature set on RoundContext
+    #                               (repro_torch.core.features)
+    aggregator: str = "mean"      # merge rule; "mean" is fedavg
+    # --- refused until their slice is ported (NotImplementedError) ---
+    mode: str = "sync"            # "async": the asynchronous slice
+    trace_csv: Optional[str] = None   # trace replay: the async/trace slice
+    topology: Any = None          # hierarchical aggregation: hierarchy slice
+    regions: int = 0              # region split: hierarchy slice
+    attack: Any = None            # adversarial clients: robustness slice
+    observe: Any = None           # run records: observability slice
+    seed: int = 0
+
+
+def _refuse_unported(cfg: FLConfig) -> None:
+    later = [
+        (cfg.mode != "sync", f"mode={cfg.mode!r}", "the async/trace slice"),
+        (cfg.trace_csv is not None, "trace_csv", "the async/trace slice"),
+        (cfg.topology is not None, "topology", "the hierarchy slice"),
+        (bool(cfg.regions), "regions", "the hierarchy slice"),
+        (cfg.attack is not None, "attack", "the robustness slice"),
+        (cfg.aggregator != "mean", f"aggregator={cfg.aggregator!r}",
+         "the robustness slice"),
+        (cfg.observe not in (None, False), "observe",
+         "the observability slice"),
+    ]
+    for unported, what, where in later:
+        if unported:
+            raise NotImplementedError(
+                f"FLConfig {what} is not ported to repro_torch yet; it comes "
+                f"with {where} (the JAX package repro has it)")
+
+
+@dataclass
+class RoundContext:
+    """Everything a selection policy may observe at the start of a round."""
+
+    round: int
+    n: int
+    k: int
+    sys: RoundSystemState            # true per-round system state (probing reveals)
+    est_t_round: np.ndarray          # (N,) static estimate of full-round latency
+    est_e_round: np.ndarray          # (N,) static estimate of full-round energy
+    data_sizes: np.ndarray           # (N,)
+    last_loss: np.ndarray            # (N,) most recent observed training loss
+    loss_age: np.ndarray             # (N,) rounds since last_loss was observed
+    available: np.ndarray = None     # (N,) bool: online this round (policies
+    #                                  MUST only probe/select available devices)
+    selection_count: np.ndarray = None  # (N,) times each device was selected
+    telemetry: Optional[DeviceTelemetry] = None   # per-device runtime history
+    feature_set: Any = None          # FeatureSet shaping probe_states
+    rng: np.random.Generator = field(repr=False, default=None)
+
+    def available_ids(self) -> np.ndarray:
+        """Ids a policy may legally probe or select this round."""
+        if self.available is None:
+            return np.arange(self.n)
+        return np.flatnonzero(self.available)
+
+    def probe_states(self, ids: np.ndarray, probe_losses: np.ndarray) -> np.ndarray:
+        """Raw state matrix (len(ids), feature_set.state_dim) for probed
+        devices; columns [0:6] are the paper's 6-dim state."""
+        return self.feature_set.raw_states(self, ids, probe_losses)
+
+
+class SelectionPolicy(Protocol):
+    name: str
+    needs_probing: bool
+
+    def probe_set(self, ctx: RoundContext) -> np.ndarray: ...
+
+    def select(self, ctx: RoundContext,
+               probe_ids: Optional[np.ndarray],
+               probe_states: Optional[np.ndarray]) -> np.ndarray: ...
+
+    def observe(self, ctx: RoundContext, result: "RoundResult",
+                probe_ids: Optional[np.ndarray],
+                probe_states: Optional[np.ndarray]) -> None: ...
+
+
+@dataclass
+class RoundResult:
+    round: int
+    selected: np.ndarray
+    probe_set: np.ndarray
+    acc: float
+    test_loss: float
+    r_t: float                    # round latency (s)
+    r_e: float                    # round energy (J)
+    d_acc: float
+    reward: float
+    cum_time: float
+    cum_energy: float
+    failed: np.ndarray = field(default_factory=_empty_ids)
+    #                             selected devices that dropped mid-round
+    stragglers: np.ndarray = field(default_factory=_empty_ids)
+    #                             selected devices that missed the deadline
+    n_available: int = -1         # fleet devices online this round
+    host_time_s: float = 0.0      # host wall-clock seconds for the round,
+    #                             device work included (ends in a host sync)
+    executor: str = ""            # executor that ran the client work
+
+
+def paper_reward(d_acc: float, r_t: float, r_e: float, t_budget: float,
+                 e_budget: float, alpha: float, beta: float) -> float:
+    """Eq. (1): R = dAcc * (T/R_T)^{1(T<R_T) a} * (E/R_E)^{1(E<R_E) b}."""
+    r = d_acc
+    if t_budget < r_t:
+        r *= (t_budget / r_t) ** alpha
+    if e_budget < r_e:
+        r *= (e_budget / r_e) ** beta
+    return float(r)
+
+
+class FLServer:
+    def __init__(self, cfg: FLConfig, task, data: FederatedData,
+                 executor: Optional[ClientExecutor] = None,
+                 device: DeviceLike = None):
+        _refuse_unported(cfg)
+        if cfg.aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {cfg.aggregator!r}; "
+                             f"expected one of {AGGREGATORS}")
+        from repro_torch.core.features import get_feature_set   # deferred:
+        #                                  repro_torch.core imports repro_torch.fl
+
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.task = task
+        self.data = data
+        self.executor = executor or make_executor(cfg.executor)
+        self.pool = build_scenario(cfg.scenario, cfg.n_devices, seed=cfg.seed)
+        self.rng = np.random.default_rng(cfg.seed + 17)
+        self.feature_set = get_feature_set(cfg.feature_set)  # validates early
+        self.telemetry = DeviceTelemetry(cfg.n_devices)
+        self.global_params: Params = task.init(cfg.seed, device=self.device)
+        # the whole train/test set lives on the device; a client's shard is
+        # a device-side gather by its index list
+        self._train_x = torch.as_tensor(data.train.x, device=self.device)
+        self._train_y = torch.as_tensor(data.train.y, device=self.device)
+        self._test_x = torch.as_tensor(data.test.x, device=self.device)
+        self._test_y = torch.as_tensor(data.test.y, device=self.device)
+        self._client_idx = [torch.as_tensor(ix, device=self.device)
+                            for ix in data.client_indices]
+        self.data_sizes = np.array([data.client_size(i) for i in range(cfg.n_devices)])
+        self.last_loss = np.full(cfg.n_devices, 3.0)
+        self.loss_age = np.zeros(cfg.n_devices)
+        self.history: List[RoundResult] = []
+        self._static_est = None   # static estimates are round-invariant
+        self._cum_time = 0.0
+        self._cum_energy = 0.0
+        self._last_acc = self._evaluate()[0]
+        # budgets from the static profile if not given: the median device's
+        # full-round cost (a "reasonable phone" finishing on time)
+        est_t, est_e = self._static_round_estimates()
+        self.t_budget = cfg.t_budget or float(np.median(est_t))
+        self.e_budget = cfg.e_budget or float(np.median(est_e)) * cfg.k_select
+        self._executor_label = getattr(self.executor, "name",
+                                       type(self.executor).__name__)
+
+    # ------------------------------------------------------------------
+    @property
+    def selection_count(self) -> np.ndarray:
+        """The telemetry's per-device counter (what ``ctx.selection_count``
+        copies)."""
+        return self.telemetry.selection_count
+
+    def _flops_per_epoch(self) -> np.ndarray:
+        return self.task.flops_per_sample() * self.data_sizes
+
+    def _static_round_estimates(self):
+        if self._static_est is None:
+            self._static_est = static_estimates(
+                self.pool, self._flops_per_epoch(), self.task.param_bytes(),
+                self.cfg.l_ep)
+        return self._static_est
+
+    @torch.no_grad()
+    def _evaluate(self):
+        """(accuracy, loss) on the test set in batches of 512, weighted by
+        batch size; one device->host copy at the end."""
+        bs = 512
+        n = len(self._test_y)
+        accs, losses, sizes = [], [], []
+        for i in range(0, n, bs):
+            b = {"x": self._test_x[i:i + bs], "y": self._test_y[i:i + bs]}
+            accs.append(self.task.accuracy(self.global_params, b))
+            losses.append(self.task.loss(self.global_params, b))
+            sizes.append(len(b["y"]))
+        accs, losses = torch.stack([torch.stack(accs),
+                                    torch.stack(losses)]).cpu().tolist()
+        return (sum(a * s for a, s in zip(accs, sizes)) / n,
+                sum(l * s for l, s in zip(losses, sizes)) / n)
+
+    def _ctx(self) -> RoundContext:
+        sys = self.pool.system_state(self._flops_per_epoch(), self.task.param_bytes())
+        est_t, est_e = self._static_round_estimates()
+        return RoundContext(
+            round=len(self.history), n=self.cfg.n_devices, k=self.cfg.k_select,
+            sys=sys, est_t_round=est_t, est_e_round=est_e,
+            data_sizes=self.data_sizes, last_loss=self.last_loss.copy(),
+            loss_age=self.loss_age.copy(), available=self.pool.available(),
+            selection_count=self.selection_count.copy(),
+            telemetry=self.telemetry, feature_set=self.feature_set,
+            rng=self.rng)
+
+    def _client_data(self, i: int):
+        idx = self._client_idx[i]
+        return self._train_x[idx], self._train_y[idx]
+
+    def _execute(self, requests: Sequence[ClientRequest]):
+        return self.executor.run(self.task, self.global_params, requests,
+                                 lr=self.cfg.lr, batch_size=self.cfg.local_batch,
+                                 prox_mu=self.cfg.prox_mu)
+
+    def _check_available(self, ctx: RoundContext, ids: np.ndarray,
+                         policy: SelectionPolicy, stage: str) -> None:
+        """Fail fast when a policy schedules work on an offline device."""
+        offline = ids[~ctx.available[ids]]
+        if len(offline):
+            raise ValueError(
+                f"policy {policy.name!r} {stage} offline devices "
+                f"{offline.tolist()} (RoundContext.available must be respected)")
+
+    # ------------------------------------------------------------------
+    def run_round(self, policy: SelectionPolicy) -> RoundResult:
+        cfg = self.cfg
+        t_host0 = time.perf_counter()
+        self.pool.advance_round()
+        ctx = self._ctx()
+        self.loss_age += 1
+
+        plan = build_round_plan(policy, ctx, cfg.l_ep)
+        probe_ids = np.asarray(plan.probe_ids, dtype=np.int64)
+        probe_states = None
+        probe_params: Dict[int, Params] = {}
+
+        # ---- probe stage ---------------------------------------------
+        if plan.has_probe:
+            self._check_available(ctx, probe_ids, policy, "probed")
+            reqs = build_requests(probe_ids, self._client_data,
+                                  plan.probe_epochs, seed=cfg.seed,
+                                  round_idx=ctx.round, stride=PROBE_SEED_STRIDE)
+            probed = self._execute(reqs)
+            probe_params = probed.params
+            probe_losses = np.array([probed.losses[int(i)][-1] for i in probe_ids])
+            self.last_loss[probe_ids] = probe_losses
+            self.loss_age[probe_ids] = 0
+            probe_states = ctx.probe_states(probe_ids, probe_losses)
+
+        # ---- select (+ the scenario failure draw) --------------------
+        selected = np.asarray(policy.select(
+            ctx, probe_ids if plan.has_probe else None, probe_states),
+            dtype=np.int64)
+        self._check_available(ctx, selected, policy, "selected")
+        if plan.has_probe:
+            missing = [int(i) for i in selected if int(i) not in probe_params]
+            if missing:
+                raise ValueError(
+                    f"policy {policy.name!r} selected devices {missing} "
+                    "outside the round's probe set")
+        # drawn before execution: who drops or misses the deadline is
+        # simulated, so the server never runs (or aggregates) their work
+        completion_s = (ctx.sys.t_comm[selected]
+                        + ctx.sys.t_comp[selected] * plan.completion_epochs)
+        outcome = self.pool.draw_failures(self.rng, selected, completion_s)
+        lost = set(int(i) for i in outcome.lost)
+        survivors = np.asarray([i for i in selected if int(i) not in lost],
+                               dtype=np.int64)
+
+        # ---- completion stage (survivors only) -----------------------
+        if plan.completion_epochs > 0 and len(survivors):
+            reqs = build_requests(survivors, self._client_data,
+                                  plan.completion_epochs, seed=cfg.seed,
+                                  round_idx=ctx.round,
+                                  stride=COMPLETE_SEED_STRIDE,
+                                  init_params=probe_params)
+            completed = self._execute(reqs)
+            client_results: Dict[int, Params] = dict(completed.params)
+            # losses from survivors only: a lost device never uploaded
+            for i in survivors:
+                losses = completed.losses[int(i)]
+                if len(losses):
+                    self.last_loss[i] = losses[-1]
+                    self.loss_age[i] = 0
+        else:
+            # no completion stage (l_ep == probe_epochs): probed params final
+            client_results = {int(i): probe_params[int(i)] for i in survivors
+                              if int(i) in probe_params}
+
+        # stragglers' cost is sunk up to the round deadline; Bernoulli
+        # failures are charged in full
+        r_t = plan_round_latency(ctx.sys, probe_ids, selected,
+                                 plan.probe_epochs, plan.completion_epochs,
+                                 deadline_s=outcome.deadline_s)
+        r_e = plan_round_energy(ctx.sys, probe_ids, selected,
+                                plan.probe_epochs, plan.completion_epochs,
+                                deadline_s=outcome.deadline_s)
+
+        if client_results:
+            weights = [self.data_sizes[i] for i in client_results]
+            self.global_params = robust_aggregate(
+                list(client_results.values()), weights, kind=cfg.aggregator)
+
+        # ---- telemetry (deterministic: recording never perturbs a run) ---
+        tel = self.telemetry
+        tel.observe_availability(ctx.available)
+        tel.observe_selection(selected)
+        tel.observe_dropouts(outcome.failed)
+        tel.observe_stragglers(outcome.stragglers)
+        if len(survivors):
+            # probe BARRIER (selection waits on the whole probe cohort) +
+            # comms + completion compute
+            barrier = (float(ctx.sys.t_comp[probe_ids].max())
+                       * plan.probe_epochs if plan.has_probe else 0.0)
+            dur = (barrier + ctx.sys.t_comm[survivors]
+                   + ctx.sys.t_comp[survivors] * plan.completion_epochs)
+            tel.observe_completions(survivors, dur)
+            # synchronous merges land immediately: version lag 0
+            tel.observe_staleness(survivors, np.zeros(len(survivors)))
+        tel.observe_cadence(r_t)
+
+        acc, test_loss = self._evaluate()
+        d_acc = acc - self._last_acc
+        self._last_acc = acc
+        reward = paper_reward(d_acc, r_t, r_e, self.t_budget, self.e_budget,
+                              cfg.alpha, cfg.beta)
+        self._cum_time += r_t
+        self._cum_energy += r_e
+        result = RoundResult(
+            round=ctx.round, selected=selected, probe_set=probe_ids, acc=acc,
+            test_loss=test_loss, r_t=r_t, r_e=r_e, d_acc=d_acc, reward=reward,
+            cum_time=self._cum_time, cum_energy=self._cum_energy,
+            failed=outcome.failed, stragglers=outcome.stragglers,
+            n_available=int(ctx.available.sum()),
+            executor=self._executor_label)
+        self.history.append(result)
+        policy.observe(ctx, result, probe_ids if plan.has_probe else None,
+                       probe_states)
+        result.host_time_s = time.perf_counter() - t_host0
+        return result
+
+    def run(self, policy: SelectionPolicy, rounds: Optional[int] = None,
+            verbose: bool = False) -> List[RoundResult]:
+        for _ in range(rounds or self.cfg.rounds):
+            res = self.run_round(policy)
+            if verbose:
+                print(f"[repro_torch.fl] round policy={policy.name} "
+                      f"round={res.round} acc={res.acc:.4f} r_t_s={res.r_t:.1f} "
+                      f"r_e_j={res.r_e:.1f} reward={res.reward:.4f} "
+                      f"host_s={res.host_time_s:.3f}")
+        return self.history

@@ -1,0 +1,175 @@
+"""Heterogeneous mobile-device simulator (numpy, host side).
+
+Devices are drawn from tiers (flagship / mid / low-end) with per-device
+compute throughput, bandwidth and energy coefficients; per-round dynamics
+(load, availability, failures) come from :mod:`repro_torch.fl.scenarios`.
+The fleet is stored struct-of-arrays and every draw follows the reference's
+RNG order, so availability masks, failure draws, latency and energy equal the
+reference's for the same ``(scenario, n_devices, seed)``.
+
+Latency/energy of a round for device i:
+    T_comp,i = flops_per_epoch_i / (speed_i * load_i)       (per local epoch)
+    T_comm,i = model_bytes * 2 / bw_i + overhead
+    E_comp,i = flops_per_epoch_i * j_per_flop_i
+    E_comm,i = model_bytes * 2 * j_per_byte_i
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+
+@dataclass
+class RoundSystemState:
+    """Per-device system observables for one round (before selection)."""
+
+    t_comp: np.ndarray    # (N,) seconds per local epoch
+    t_comm: np.ndarray    # (N,) seconds for model down+up
+    e_comp: np.ndarray    # (N,) joules per local epoch
+    e_comm: np.ndarray    # (N,) joules for comms
+    load: np.ndarray      # (N,) current interference multiplier (<=1)
+
+
+_TIERS = [
+    # (effective training FLOP/s, bw B/s, J/FLOP, J/byte)
+    (1.2e9, 12.5e6, 4.0e-9, 1.5e-7),     # flagship
+    (3.5e8, 5.0e6, 1.0e-8, 3.0e-7),      # mid-range
+    (6.0e7, 1.5e6, 2.5e-8, 6.0e-7),      # low-end
+]
+
+# fixed per-round protocol overhead (handshake, scheduling), seconds
+_COMM_OVERHEAD_S = 2.0
+
+
+class DevicePool:
+    """N simulated devices with static + dynamic heterogeneity.
+
+    ``speed``, ``bandwidth``, ``j_per_flop``, ``j_per_byte`` and ``tier`` are
+    ``(N,)`` vectors sampled once at construction; dynamics are delegated to
+    the scenario models.  ``DevicePool(n, seed)`` with no models is the
+    ``uniform`` scenario (Markov load, always available, no failures).
+    """
+
+    def __init__(self, n_devices: int, seed: int = 0,
+                 tier_probs: Optional[List[float]] = None, *,
+                 load_model=None, availability=None, failures=None):
+        from repro_torch.fl.scenarios import (   # deferred: scenarios imports us
+            AlwaysAvailable,
+            FailureModel,
+            MarkovLoad,
+        )
+
+        self.n = n_devices
+        self.rng = np.random.default_rng(seed)
+        tier_probs = np.asarray(tier_probs if tier_probs is not None
+                                else [0.25, 0.5, 0.25], dtype=np.float64)
+        tier_table = np.asarray(_TIERS, dtype=np.float64)
+        # one inverse-CDF draw for tiers, one (4, N) block for the jitters
+        u = self.rng.random(n_devices)
+        cdf = np.cumsum(tier_probs) / tier_probs.sum()
+        self.tier = np.minimum(np.searchsorted(cdf, u), len(tier_table) - 1)
+        base = tier_table[self.tier]                        # (N, 4)
+        jit = np.exp(0.25 * self.rng.standard_normal((4, n_devices)))
+        self.speed = base[:, 0] * jit[0]
+        self.bandwidth = base[:, 1] * jit[1]
+        self.j_per_flop = base[:, 2] * jit[2]
+        self.j_per_byte = base[:, 3] * jit[3]
+
+        self.load_model = load_model if load_model is not None else MarkovLoad()
+        self.availability = (availability if availability is not None
+                             else AlwaysAvailable())
+        self.failures = failures if failures is not None else FailureModel()
+        self._load_state = self.load_model.init_state(n_devices, self.rng)
+        self._avail_state = self.availability.init_state(n_devices, self.rng)
+        self.round_idx = 0
+        self._comm_cache = None   # (model_bytes, t_comm, e_comm)
+        self._inv_speed = 1.0 / self.speed
+
+    def advance_round(self) -> None:
+        """Step every device's load + availability dynamics."""
+        self.round_idx += 1
+        self._load_state = self.load_model.step(self._load_state, self.rng,
+                                                self.round_idx)
+        self._avail_state = self.availability.step(self._avail_state, self.rng,
+                                                   self.round_idx)
+
+    def loads(self) -> np.ndarray:
+        return self.load_model.loads(self._load_state, self.round_idx)
+
+    def available(self) -> np.ndarray:
+        """(N,) bool online mask for the current round, with at least one
+        device online (an empty round would stall every round loop)."""
+        mask = np.asarray(self.availability.mask(self._avail_state,
+                                                 self.round_idx), dtype=bool)
+        if not mask.any():
+            mask = mask.copy()
+            mask[int(self.rng.integers(self.n))] = True
+        return mask
+
+    def draw_failures(self, rng: np.random.Generator, selected: np.ndarray,
+                      completion_s: np.ndarray):
+        """Delegate mid-round failures to the scenario's failure model."""
+        return self.failures.draw(rng, selected, completion_s)
+
+    def system_state(self, flops_per_epoch: np.ndarray, model_bytes: float
+                     ) -> RoundSystemState:
+        """flops_per_epoch: (N,) — depends on each client's local data size."""
+        load = self.loads()
+        t_comp = flops_per_epoch * self._inv_speed / load
+        if self._comm_cache is None or self._comm_cache[0] != model_bytes:
+            self._comm_cache = (
+                model_bytes,
+                2.0 * model_bytes / self.bandwidth + _COMM_OVERHEAD_S,
+                2.0 * model_bytes * self.j_per_byte)
+        _, t_comm, e_comm = self._comm_cache
+        e_comp = flops_per_epoch * self.j_per_flop
+        return RoundSystemState(t_comp, t_comm, e_comp, e_comm, load)
+
+
+def static_estimates(pool: DevicePool, flops_per_epoch: np.ndarray,
+                     model_bytes: float, l_ep: int):
+    """Load-free per-device full-round latency/energy estimates — what a
+    scheduler knows *before* probing."""
+    t = (2 * model_bytes / pool.bandwidth + _COMM_OVERHEAD_S
+         + l_ep * flops_per_epoch / pool.speed)
+    e = 2 * model_bytes * pool.j_per_byte + l_ep * flops_per_epoch * pool.j_per_flop
+    return t, e
+
+
+def plan_round_latency(state: RoundSystemState, probe_ids: np.ndarray,
+                       selected: np.ndarray, probe_epochs: int,
+                       completion_epochs: int,
+                       deadline_s: Optional[float] = None) -> float:
+    """R_T for a RoundPlan: the probe barrier (max over the probe cohort of
+    ``probe_epochs`` compute epochs) plus the completion stage (max over the
+    selected of comms + ``completion_epochs`` epochs), stragglers cut at the
+    deadline."""
+    t = (float(state.t_comp[probe_ids].max()) * probe_epochs
+         if len(probe_ids) and probe_epochs else 0.0)
+    if len(selected) == 0:
+        return t
+    rest = state.t_comm[selected] + state.t_comp[selected] * completion_epochs
+    if deadline_s is not None:
+        rest = np.minimum(rest, deadline_s)
+    return t + float(rest.max())
+
+
+def plan_round_energy(state: RoundSystemState, probe_ids: np.ndarray,
+                      selected: np.ndarray, probe_epochs: int,
+                      completion_epochs: int,
+                      deadline_s: Optional[float] = None) -> float:
+    """R_E for a RoundPlan: probe compute summed over the whole probe cohort,
+    plus comms + completion compute summed over the selected; a straggler is
+    charged pro-rata up to the deadline."""
+    e = (float(state.e_comp[probe_ids].sum()) * probe_epochs
+         if len(probe_ids) and probe_epochs else 0.0)
+    if len(selected) == 0:
+        return e
+    rest = state.e_comm[selected] + state.e_comp[selected] * completion_epochs
+    if deadline_s is not None:
+        t_full = state.t_comm[selected] + state.t_comp[selected] * completion_epochs
+        frac = np.clip(deadline_s / np.maximum(t_full, 1e-12), 0.0, 1.0)
+        rest = rest * frac
+    return e + float(rest.sum())

@@ -1,0 +1,64 @@
+"""Client-side training task: the classification MLP each FL client trains.
+
+:class:`MLPTask` plays the role of LeNet5/ResNet18 in the paper's testbed on
+the synthetic feature datasets.  The LM task waits for the model-zoo port.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.models.layers import dense_init, softmax_xent
+
+Params = Dict[str, torch.Tensor]
+
+
+class MLPTask:
+    """2-hidden-layer MLP classifier."""
+
+    def __init__(self, dim: int = 32, hidden: int = 128, n_classes: int = 10):
+        self.dim, self.hidden, self.n_classes = dim, hidden, n_classes
+
+    def init(self, seed: int = 0, device: DeviceLike = None) -> Params:
+        """Fresh weights from ``torch.Generator().manual_seed(seed)``, placed
+        on ``device`` (the card unless ``device="cpu"``)."""
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
+        zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
+        return {
+            "w1": dense_init(gen, self.dim, self.hidden, dev),
+            "b1": zeros(self.hidden),
+            "w2": dense_init(gen, self.hidden, self.hidden, dev),
+            "b2": zeros(self.hidden),
+            "w3": dense_init(gen, self.hidden, self.n_classes, dev),
+            "b3": zeros(self.n_classes),
+        }
+
+    def logits(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(x @ p["w1"] + p["b1"])
+        h = torch.relu(h @ p["w2"] + p["b2"])
+        return h @ p["w3"] + p["b3"]
+
+    def loss(self, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return softmax_xent(self.logits(p, batch["x"]), batch["y"],
+                            batch.get("mask"))
+
+    def accuracy(self, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        pred = self.logits(p, batch["x"]).argmax(-1)
+        hit = (pred == batch["y"].long()).float()
+        mask: Optional[torch.Tensor] = batch.get("mask")
+        if mask is None:
+            return hit.mean()
+        return (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    def flops_per_sample(self) -> float:
+        # fwd+bwd ~= 3x fwd; fwd = 2 * param MACs
+        p = self.dim * self.hidden + self.hidden ** 2 + self.hidden * self.n_classes
+        return 6.0 * p
+
+    def param_bytes(self) -> float:
+        p = (self.dim * self.hidden + self.hidden ** 2
+             + self.hidden * self.n_classes + 2 * self.hidden + self.n_classes)
+        return 4.0 * p

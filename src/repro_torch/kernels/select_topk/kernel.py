@@ -1,0 +1,177 @@
+"""CUDA kernel for Hopper: fused Q-net scoring -> top-K cohort selection.
+
+Replaces the TPU kernel ``src/repro/kernels/select_topk/kernel.py``
+(``select_topk_pallas``).  The source is ``src/repro_torch/csrc/select_topk.cu``;
+its header comment gives the bound on the card (fp32 FMAs: 2·N·(F·H + H² + H)
+FLOPs against (F + 2)·4·N bytes) and the two-pass design: one CTA per
+256-row tile scores its rows and bitonic-sorts them in shared memory, then a
+fixed-order tree of pairwise merges keeps the best K_pad.  The result is
+exact and deterministic.
+
+The library is compiled with ``nvcc`` at first use into ``build/kernels/`` at
+the repository root (named by a hash of the source and flags, so an edited
+source rebuilds) and bound with ``ctypes``.  Nothing is built or imported
+when this module is imported.
+
+:func:`select_topk_cuda` launches the kernel for CUDA tensors and takes the
+plain version (:func:`~repro_torch.kernels.select_topk.ref.select_topk_ref`)
+only for CPU tensors; any other device raises.  ``select_topk_cuda.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.select_topk.ref import select_topk_ref
+
+TILE = 256            # candidates per CTA in pass 1 (select_topk.cu TILE)
+MAX_F = 64
+MAX_H = 128
+MAX_K = 1024          # k is padded to K_pad = ceil(k / 8) * 8 <= 1024
+
+_PKG = Path(__file__).resolve().parents[2]                  # src/repro_torch
+SOURCE = _PKG / "csrc" / "select_topk.cu"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+build_log = ""        # nvcc's output of the last build (-Xptxas -v: registers,
+#                       shared memory, spills per kernel)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the select_topk CUDA kernel is built from source")
+
+
+def library_path() -> Path:
+    """Where the built library lives: named by a hash of source + flags."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"libselect_topk-{digest}.so"
+
+
+def build() -> Path:
+    """Compile the kernel library if it is not built yet; returns its path."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)                   # atomic: readers never see a partial file
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.select_topk_launch
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * 5)
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def k_padded(k: int) -> int:
+    return max(8, -(-int(k) // 8) * 8)
+
+
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, feats on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def select_topk_cuda(params: Dict[str, torch.Tensor], feats: torch.Tensor,
+                     mask: torch.Tensor, bias: torch.Tensor, *, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """feats (N, F), mask (N,), bias (N,) float32 -> (values (k,) float32,
+    indices (k,) int64), score descending, lowest-index ties, masked rows
+    last.  Requires 1 <= k <= N, F <= 64, H <= 128, k <= 1024.
+
+    CUDA tensors launch the kernel (and count the launch); CPU tensors take
+    the plain version; anything else raises.
+    """
+    if feats.device.type == "cpu":
+        return select_topk_ref(params, feats, mask, bias, k=k)
+    if feats.device.type != "cuda":
+        raise ValueError(f"select_topk runs on cuda or cpu tensors, got "
+                         f"{feats.device}")
+    if feats.dim() != 2:
+        raise ValueError(f"feats must be (N, F), got shape {tuple(feats.shape)}")
+    n, f = feats.shape
+    h = int(params["w1"].shape[1]) if params["w1"].dim() == 2 else -1
+    if not (1 <= f <= MAX_F and 1 <= h <= MAX_H):
+        raise ValueError(f"select_topk kernel takes F <= {MAX_F} and "
+                         f"H <= {MAX_H}, got F={f}, H={h}")
+    if not 1 <= k <= min(n, MAX_K):
+        raise ValueError(f"select_topk kernel takes 1 <= k <= min(N, {MAX_K}), "
+                         f"got k={k}, N={n}")
+    if n > 2**31 - 1 - TILE:
+        raise ValueError(f"select_topk kernel takes N < 2**31 - {TILE}, got {n}")
+    dev = feats.device
+    _check("feats", feats, (n, f), dev)
+    _check("mask", mask, (n,), dev)
+    _check("bias", bias, (n,), dev)
+    for name, shape in (("w1", (f, h)), ("b1", (h,)), ("w2", (h, h)),
+                        ("b2", (h,)), ("w3", (h, 1)), ("b3", (1,))):
+        _check(name, params[name], shape, dev)
+
+    lib = _load()
+    k_pad = k_padded(k)
+    n_tiles = -(-n // TILE)
+    n_scratch = (n_tiles + -(-n_tiles // 2)) * k_pad
+    scratch_v = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    scratch_i = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    out_v = torch.empty(k_pad, dtype=torch.float32, device=dev)
+    out_i = torch.empty(k_pad, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.select_topk_launch(
+            feats.data_ptr(), mask.data_ptr(), bias.data_ptr(),
+            params["w1"].data_ptr(), params["b1"].data_ptr(),
+            params["w2"].data_ptr(), params["b2"].data_ptr(),
+            params["w3"].data_ptr(), params["b3"].data_ptr(),
+            n, f, h, k_pad, scratch_v.data_ptr(), scratch_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"select_topk kernel launch failed: CUDA error {err}")
+    select_topk_cuda.launches += 1
+    return out_v[:k], out_i[:k].long()
+
+
+select_topk_cuda.launches = 0

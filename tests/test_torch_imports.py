@@ -1,0 +1,108 @@
+"""The port stands alone and never falls back to the CPU on its own.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``
+  or anything of the JAX package ``repro``.
+* Entry points asked for ``cuda`` (or left to their default, the card) on a
+  machine without one raise; they do not quietly run on the CPU.
+* Configurations the port has not reached yet are refused, naming the slice.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.qnet import init_qnet
+from repro_torch.data import FederatedData, dirichlet_partition, make_classification_data
+from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for want in ("chip_smoke.py", "src/repro_torch/fl/server.py",
+                 "src/repro_torch/core/fedrank.py",
+                 "src/repro_torch/kernels/select_topk/kernel.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_and_no_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "flax"), (path, mod)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the refusal path is not reachable")
+
+
+def _tiny_data():
+    tr, te = make_classification_data(n_samples=400, seed=0)
+    return FederatedData(tr, te, dirichlet_partition(tr.y, 10, 0.5, seed=0))
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_entry_points_refuse_missing_card(device):
+    _no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        repro_torch.resolve_device(device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_qnet(0, device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MLPTask().init(0, device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({"w": np.zeros((2, 2), np.float32)}, device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_policy("fedrank", k=3, device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FLServer(FLConfig(n_devices=10, k_select=2), MLPTask(), _tiny_data(),
+                 device=device)
+
+
+def test_cpu_is_explicit():
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    q = init_qnet(0, device="cpu")
+    assert all(t.device.type == "cpu" for t in q.values())
+
+
+@pytest.mark.parametrize("field,value,slice_name", [
+    ("mode", "async", "async/trace"),
+    ("trace_csv", "trace.csv", "async/trace"),
+    ("topology", "edge-hier", "hierarchy"),
+    ("regions", 3, "hierarchy"),
+    ("attack", object(), "robustness"),
+    ("aggregator", "krum", "robustness"),
+    ("observe", True, "observability"),
+])
+def test_unported_config_is_refused(field, value, slice_name):
+    cfg = FLConfig(n_devices=10, k_select=2, **{field: value})
+    with pytest.raises(NotImplementedError, match=slice_name):
+        FLServer(cfg, MLPTask(), _tiny_data(), device="cpu")
+
+
+def test_unknown_policy_lists_registered():
+    with pytest.raises(KeyError, match="fedrank-IP"):
+        build_policy("oort")
