@@ -6,23 +6,42 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device and build — refuses to run without CUDA, prints the card's name and
-   power limit (``nvidia-smi``), builds the CUDA kernels from this checkout;
-2. every kernel against its plain PyTorch version on the card, over sizes,
-   masks, biases, tie patterns, hidden widths and the kernel's limits, with
-   the tolerance stated below;
+   power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
+   (``select_topk`` and ``pairwise_rank``, one ``nvcc`` each, started
+   together) and prints ``ptxas``'s registers and spills;
+2. every kernel against its plain PyTorch version on the card, with the
+   tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
+   patterns, hidden widths and its limits; ``pairwise_rank`` forward loss and
+   score gradient over N in {1, 2, 7, 30, 127, 128, 129, 1000, 8192}, B in
+   {1, 16}, hard and soft targets, plus all-masked rows, duplicated scores,
+   tied targets and a fractional mask;
 3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
    version's and the least time the card could take (the bound);
-4. the main path: the CPU and the card agree on a small run, then
-   ``FLServer`` rounds at 1000 devices on the card, ``fedavg`` then
-   ``fedrank``, with every kernel's launch count read around them;
-5. one more FedRank round under ``torch.profiler``: device busy time, idle
-   share and the kernels that take it;
-6. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
+4. the CPU and the card agree: one round of every policy at 50 devices picks
+   the same cohorts, and 5 imitation-pretraining steps from the same Q-net
+   give the same Q-net;
+5. path 1, synchronous rounds: ``FLServer`` at 1000 devices on the card,
+   ``fedavg`` then ``fedrank`` (cold start), then one more FedRank round
+   under ``torch.profiler``;
+6. path 2, imitation learning at the paper's configuration: demonstrations
+   from the oort, harmony and fedmarl experts (15 rounds each), 200
+   synthetic cohorts, 2000 ``pretrain_qnet`` steps (batch 16), then 3
+   FedRank rounds from the pretrained Q-net; 50 more pretraining steps under
+   ``torch.profiler``;
+7. path 3, one round of each baseline at 1000 devices;
+8. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
 
-Kernel tolerance: values within 1e-5 * max(1, |v|) of the plain version's
-(fp32 sums in another order); indices equal wherever the plain version's
-adjacent score gap exceeds twice that; indices exactly equal where scores tie
-exactly (duplicated rows, quantised scores, masked rows).
+Every kernel wrapper counts its launches.  Each path is driven with every
+count set to 0 just before it and read just after; launches made to compare
+a kernel with its plain version are not counted.
+
+Tolerances.  ``select_topk``: values within 1e-5 * max(1, |v|) of the plain
+version's (fp32 sums in another order); indices equal wherever the plain
+version's adjacent score gap exceeds twice that; indices exactly equal where
+scores tie exactly (duplicated rows, quantised scores, masked rows).
+``pairwise_rank``: loss within 1e-5 * max(1, |loss|); gradient within 1e-5 *
+max |g_ref| of its row, and exactly 0 on an all-masked row (fp32 pair sums
+in another order; the kernels add fp32 tile sums in fp64).
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -34,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -141,6 +161,92 @@ def cuda_ms(torch, fn, reps=25, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# launch counts of every kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _wrappers():
+    from repro_torch.kernels.pairwise_rank.kernel import (
+        pairwise_rank_bwd_cuda,
+        pairwise_rank_fwd_cuda,
+    )
+    from repro_torch.kernels.select_topk.kernel import select_topk_cuda
+
+    return {"select_topk": select_topk_cuda,
+            "pairwise_rank_fwd": pairwise_rank_fwd_cuda,
+            "pairwise_rank_bwd": pairwise_rank_bwd_cuda}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+# ---------------------------------------------------------------------------
+# pairwise_rank: inputs, comparison, bound
+# ---------------------------------------------------------------------------
+
+# fp32 operations per valid pair (pm != 0), transcendentals (expf, log1pf,
+# the sigmoid's expf) counted as one operation each (csrc/pairwise_rank.cu)
+PAIR_OPS = {("fwd", True): 14, ("fwd", False): 16,
+            ("bwd", True): 10, ("bwd", False): 12}
+
+
+def pairwise_inputs(torch, b, n, seed, *, masked_frac=0.3, case="random"):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    s = torch.randn(b, n, generator=g, device=dev)
+    t = torch.randn(b, n, generator=g, device=dev)
+    m = (torch.rand(b, n, generator=g, device=dev) > masked_frac).float()
+    if case == "all-masked":
+        m.zero_()
+    elif case == "duplicated-scores":           # l = 0 on many pairs
+        s = torch.randint(0, 3, (b, n), generator=g, device=dev).float()
+    elif case == "tied-targets":                # hard target 0.5 on many pairs
+        t = torch.randint(0, 3, (b, n), generator=g, device=dev).float()
+    elif case == "fractional-mask":
+        m[:, n // 2] = 0.5
+    return s.contiguous(), t.contiguous(), m.contiguous()
+
+
+def pairwise_plain(torch, s, t, m, hard):
+    """Plain loss (B,) and autograd score gradient (B, N); row by row where
+    the (B, N, N) matrices would be large."""
+    from repro_torch.kernels.pairwise_rank.ref import pairwise_rank_ref
+
+    rows = [slice(0, s.shape[0])] if s.shape[0] * s.shape[1] ** 2 <= 2**26 else [
+        slice(r, r + 1) for r in range(s.shape[0])]
+    losses, grads = [], []
+    for r in rows:
+        x = s[r].detach().clone().requires_grad_(True)
+        loss = pairwise_rank_ref(x, t[r], m[r], hard)
+        (grad,) = torch.autograd.grad(loss.sum(), x)
+        losses.append(loss.detach())
+        grads.append(grad)
+    return torch.cat(losses), torch.cat(grads)
+
+
+def pairwise_bound_ms(torch, m, kind, hard):
+    """Least time for one call: the operations on the valid pairs this mask
+    gives (pm != 0), or the bytes (inputs read once, outputs written once)
+    over HBM bandwidth, whichever is larger."""
+    b, n = m.shape
+    nz = (m != 0).double().sum(1)
+    pairs = float((nz * nz - nz).sum())
+    ops = pairs * PAIR_OPS[(kind, hard)]
+    if kind == "fwd":
+        nbytes = 12.0 * b * n + 12.0 * b            # s, t, m in; loss f32, count f64 out
+    else:
+        nbytes = 12.0 * b * n + 12.0 * b + 4.0 * b * n   # + count, g in; grad out
+    t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -255,17 +361,15 @@ def phase_cpu_agreement(torch):
              loss_card=b.test_loss)
 
 
-def phase_main_path(torch):
+def phase_main_path(torch, data):
+    """Path 1: synchronous rounds at 1000 devices, fedavg then cold-start
+    fedrank."""
     from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
 
-    t0 = time.perf_counter()
-    data = small_data(64_000, 1000)
-    emit(phase="main_data", samples=64_000, clients=1000,
-         seconds=time.perf_counter() - t0)
     cfg = FLConfig(n_devices=1000, k_select=10, rounds=3, l_ep=5,
                    scenario="high-churn")
-    select_topk_cuda.launches = 0                 # every count to 0
+    reset_counts()                                # every count to 0
     per_policy = {}
     for name in ("fedavg", "fedrank"):
         srv = FLServer(cfg, MLPTask(), data, device="cuda")
@@ -275,49 +379,322 @@ def phase_main_path(torch):
             before = select_topk_cuda.launches
             res = srv.run_round(policy)
             launched.append(select_topk_cuda.launches - before)
-            online = srv.pool.available()
-            sel = res.selected.tolist()
-            require(len(sel) == len(set(sel)) <= cfg.k_select, sel)
-            require(bool(online[res.selected].all()), "offline device selected")
-            require(math.isfinite(res.acc) and math.isfinite(res.test_loss))
+            check_round(srv, res, cfg.k_select)
             emit(phase="main", policy=name, round=res.round, acc=res.acc,
-                 test_loss=res.test_loss, r_t=res.r_t, r_e=res.r_e, cohort=sel,
-                 probe=len(res.probe_set), failed=res.failed.tolist(),
-                 host_s=res.host_time_s, select_topk_launches=launched[-1])
+                 test_loss=res.test_loss, r_t=res.r_t, r_e=res.r_e,
+                 cohort=res.selected.tolist(), probe=len(res.probe_set),
+                 failed=res.failed.tolist(), host_s=res.host_time_s,
+                 select_topk_launches=launched[-1])
         for key, t in srv.global_params.items():
             require(t.is_cuda and bool(torch.isfinite(t).all()), key)
         per_policy[name] = launched
-    launches = select_topk_cuda.launches          # read just after
+    counts = read_counts()                        # read just after
     require(all(n >= 2 for n in per_policy["fedrank"]), per_policy)
-    require(launches > 0)
-    emit(phase="main_launches", select_topk=launches, per_round=per_policy)
-    return launches, srv, policy
+    require(counts["select_topk"] > 0, counts)
+    emit(phase="main_launches", path="sync_rounds", launches=counts,
+         per_round=per_policy)
+    return counts, srv, policy
+
+
+def check_round(srv, res, k):
+    """A round's cohort is unique, at most k, online; its outcome finite."""
+    online = srv.pool.available()
+    sel = res.selected.tolist()
+    require(len(sel) == len(set(sel)) <= k, sel)
+    require(bool(online[res.selected].all()), "offline device selected")
+    require(math.isfinite(res.acc) and math.isfinite(res.test_loss))
 
 
 def phase_profile(torch, srv, policy):
     """One more FedRank round under torch.profiler: where the round's time
     goes on the card.  The profiler slows the host, so the wall time here
     is longer than an unprofiled round's (the main-path lines give those)."""
+    res = []
+    wall, rows, dev_us, _ = device_profile(
+        torch, lambda: res.append(srv.run_round(policy)))
+    busy_s = sum(dev_us(e) for e in rows) / 1e6
+    sel_s = sum(dev_us(e) for e in rows
+                if "score_tile_topk" in e.key or "merge_pairs" in e.key) / 1e6
+    top = sorted(rows, key=dev_us, reverse=True)[:8]
+    emit(phase="profile", policy=policy.name, round=res[0].round, wall_s=wall,
+         device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
+         device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
+         select_topk_device_s=sel_s,
+         top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+
+
+def phase_pairwise_vs_plain(torch):
+    """Forward loss and score gradient of the op (both kernels, through its
+    autograd Function) against the plain version and its autograd."""
+    from repro_torch.kernels.pairwise_rank.ops import pairwise_rank
+
+    cases = [dict(b=b, n=n, hard=hard, case="random")
+             for n in (1, 2, 7, 30, 127, 128, 129, 1000, 8192)
+             for b in (1, 16) for hard in (True, False)]
+    for hard in (True, False):
+        cases += [dict(b=16, n=30, hard=hard, case="all-masked"),
+                  dict(b=16, n=129, hard=hard, case="duplicated-scores"),
+                  dict(b=4, n=1000, hard=hard, case="tied-targets"),
+                  dict(b=16, n=30, hard=hard, case="fractional-mask")]
+    err_fwd = err_bwd = 0.0
+    summary = []
+    for i, c in enumerate(cases):
+        s, t, m = pairwise_inputs(torch, c["b"], c["n"], seed=i, case=c["case"])
+        x = s.clone().requires_grad_(True)
+        loss = pairwise_rank(x, t, m, hard=c["hard"])
+        (grad,) = torch.autograd.grad(loss.sum(), x)
+        ref_loss, ref_grad = pairwise_plain(torch, s, t, m, c["hard"])
+        torch.cuda.synchronize()
+        loss, ref_loss = loss.detach().double(), ref_loss.double()
+        e_loss = (loss - ref_loss).abs()
+        require(bool((e_loss <= TOL * torch.clamp(ref_loss.abs(), min=1.0)).all()),
+                f"pairwise loss off in {c}: {e_loss.max().item()}")
+        g_ref_max = ref_grad.double().abs().max(1).values
+        e_grad = (grad.double() - ref_grad.double()).abs().max(1).values
+        require(bool((e_grad <= TOL * g_ref_max).all()),
+                f"pairwise gradient off in {c}: {e_grad.max().item()}")
+        if c["case"] == "all-masked":
+            require(bool((loss == 0).all()) and not bool(grad.any()), c)
+        err_fwd = max(err_fwd, float(e_loss.max()))
+        err_bwd = max(err_bwd, float(e_grad.max()))
+        summary.append([c["case"], c["b"], c["n"], "hard" if c["hard"] else "soft",
+                        float(e_loss.max()), float(e_grad.max()),
+                        float(g_ref_max.max())])
+    emit(phase="kernel_vs_plain", kernel="pairwise_rank", cases=len(cases),
+         tolerance={"loss": "1e-5*max(1,|loss|)",
+                    "gradient": "1e-5*max|g_ref| of its row"},
+         max_abs_err_fwd=err_fwd, max_abs_err_bwd=err_bwd,
+         results=[["case", "B", "N", "targets", "loss_err", "grad_err",
+                   "max|g_ref|"]] + summary)
+    return err_fwd, err_bwd
+
+
+def phase_pairwise_timings(torch, card):
+    """Forward and gradient kernels at the IL shape (B=16 cohorts of 30,
+    hard targets) and at one large cohort; the plain version beside them
+    (its gradient is its forward plus autograd), except at 65,536 where its
+    N^2 matrices do not fit."""
+    from repro_torch.kernels.pairwise_rank.kernel import (
+        pairwise_rank_bwd_cuda,
+        pairwise_rank_fwd_cuda,
+    )
+    from repro_torch.kernels.pairwise_rank.ref import pairwise_rank_ref
+
+    rows = {}
+    for label, b, n in (("il_b16_n30", 16, 30), ("b1_n8192", 1, 8192),
+                        ("b1_n65536", 1, 65536)):
+        s, t, m = pairwise_inputs(torch, b, n, seed=b + n, masked_frac=0.0)
+        _, count = pairwise_rank_fwd_cuda(s, t, m, hard=True)
+        g = torch.ones(b, device="cuda")
+        out = {}
+        for kind in ("fwd", "bwd"):
+            if kind == "fwd":
+                fn = lambda: pairwise_rank_fwd_cuda(s, t, m, hard=True)
+                plain = lambda: pairwise_rank_ref(s, t, m, True)
+            else:
+                fn = lambda: pairwise_rank_bwd_cuda(s, t, m, count, g, hard=True)
+                plain = lambda: pairwise_plain(torch, s, t, m, True)
+            bound, bound_by = pairwise_bound_ms(torch, m, kind, True)
+            out[kind] = dict(b=b, n=n, hard=True, ms=cuda_ms(torch, fn),
+                             plain_ms=cuda_ms(torch, plain) if n <= 8192 else None,
+                             bound_ms=bound, bound_by=bound_by, library_ms=None)
+            emit(phase="timing", kernel=f"pairwise_rank_{kind}", shape=label,
+                 card=card, **out[kind])
+        rows[label] = out
+    return rows
+
+
+def phase_cpu_agreement_policies(torch, data):
+    """One round of every policy this slice adds, at 50 devices, on the CPU
+    and on the card from the same seeds: the same probe sets and cohorts.
+    ``favor`` starts from one Q-net (made on the CPU, copied) with eps=0, so
+    its cut is the fused scoring + top-K on both."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+    for name in ("afl", "tifl", "oort", "oort-telemetry", "favor", "fedmarl",
+                 "expert-oort", "expert-harmony", "expert-fedmarl"):
+        results, q0 = {}, None
+        for dev in ("cpu", "cuda"):
+            cfg = FLConfig(n_devices=50, k_select=5, rounds=1, l_ep=2,
+                           scenario="high-churn", seed=3)
+            srv = FLServer(cfg, MLPTask(), data, device=dev)
+            if name == "favor":
+                pol = build_policy("favor", eps=0.0, device=dev)
+                if q0 is None:
+                    q0 = pol.q
+                pol.q = {k: v.to(dev) for k, v in q0.items()}
+                pol.q_target = {k: v.to(dev) for k, v in q0.items()}
+            else:
+                pol = build_policy(name)
+            results[dev] = srv.run_round(pol)
+        a, b = results["cpu"], results["cuda"]
+        require(a.probe_set.tolist() == b.probe_set.tolist(), (name, a.probe_set, b.probe_set))
+        require(a.selected.tolist() == b.selected.tolist(), (name, a.selected, b.selected))
+        emit(phase="cpu_vs_card", policy=name, cohort=b.selected.tolist(),
+             probe=len(b.probe_set), acc_cpu=a.acc, acc_card=b.acc)
+
+
+def phase_cpu_agreement_il(torch):
+    """5 pretraining steps from the same demonstrations and Q-net (made on
+    the CPU, copied) on each device.  Params within 1e-4: the gradients
+    agree to fp32 rounding and Adam amplifies that over steps.  ``b3`` is
+    held only to move at most lr per step: the pairwise loss ignores a shift
+    of every score, so its gradient is rounding noise that Adam normalises."""
+    from repro_torch.core import augment_demonstrations, init_qnet, pretrain_qnet
+
+    demos = augment_demonstrations([], n_synthetic=40, seed=0)
+    q0 = init_qnet(0, device="cpu")
+    out = {dev: pretrain_qnet(demos, steps=5, batch=16, lr=1e-3, qnet_params=q0,
+                              device=dev) for dev in ("cpu", "cuda")}
+    (qa, ha), (qb, hb) = out["cpu"], out["cuda"]
+    worst = 0.0
+    for k in qa:
+        err = float((qa[k] - qb[k].cpu()).abs().max())
+        if k == "b3":
+            for q in (qa, qb):
+                require(float((q[k].cpu() - q0[k]).abs().max()) <= 5e-3 * (1 + 1e-6), k)
+            continue
+        require(err <= 1e-4, (k, err))
+        worst = max(worst, err)
+    require(all(abs(x - y) <= 1e-4 for x, y in zip(ha["loss"], hb["loss"])), (ha, hb))
+    emit(phase="cpu_vs_card", path="pretrain_qnet", steps=5, max_param_err=worst,
+         loss_cpu=ha["loss"], loss_card=hb["loss"], tolerance=1e-4)
+
+
+def phase_il_path(torch, data):
+    """Path 2: imitation learning at the paper's configuration, then FedRank
+    rounds from the pretrained Q-net."""
+    from repro_torch.core import augment_demonstrations, collect_demonstrations, pretrain_qnet
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+    cfg = FLConfig(n_devices=1000, k_select=10, rounds=3, l_ep=5,
+                   scenario="high-churn")
+    servers = []
+
+    def make_server():
+        servers.append(FLServer(cfg, MLPTask(), data, device="cuda"))
+        return servers[-1]
+
+    reset_counts()                                # every count to 0
+    stages = {}
+    t0 = time.perf_counter()
+    demos = collect_demonstrations(make_server, ("oort", "harmony", "fedmarl"),
+                                   rounds_per_expert=15)
+    torch.cuda.synchronize()
+    stages["collect_s"] = time.perf_counter() - t0
+    for srv in servers:
+        for res in srv.history:
+            sel = res.selected.tolist()
+            require(len(sel) == len(set(sel)) <= cfg.k_select, sel)
+            require(set(sel) <= set(res.probe_set.tolist()), "outside probe set")
+    t0 = time.perf_counter()
+    demos = augment_demonstrations(demos, n_synthetic=200)
+    stages["augment_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q, hist = pretrain_qnet(demos, steps=2000, batch=16, lr=1e-3)
+    torch.cuda.synchronize()
+    stages["pretrain_s"] = time.perf_counter() - t0
+    pre_counts = read_counts()
+    require(pre_counts["pairwise_rank_fwd"] == 2000, pre_counts)
+    require(pre_counts["pairwise_rank_bwd"] == 2000, pre_counts)
+    require(hist["rank_acc"][-1] > hist["rank_acc"][0], hist["rank_acc"])
+    for key, t in q.items():
+        require(t.is_cuda and bool(torch.isfinite(t).all()), key)
+    t0 = time.perf_counter()
+    srv = FLServer(cfg, MLPTask(), data, device="cuda")
+    policy = build_policy("fedrank", qnet=q, k=10)
+    for _ in range(cfg.rounds):
+        res = srv.run_round(policy)
+        check_round(srv, res, cfg.k_select)
+        emit(phase="il_fedrank", round=res.round, acc=res.acc,
+             test_loss=res.test_loss, cohort=res.selected.tolist(),
+             host_s=res.host_time_s)
+    torch.cuda.synchronize()
+    stages["fedrank_rounds_s"] = time.perf_counter() - t0
+    counts = read_counts()                        # read just after
+    require(counts["select_topk"] >= 2 * cfg.rounds, counts)
+    emit(phase="il_path", demos=len(demos), recorded=len(demos) - 200,
+         max_cohort=max(len(d.states) for d in demos), steps=2000, batch=16,
+         hist=hist, seconds=stages, launches=counts,
+         pretrain_launches=pre_counts)
+    return counts, demos, q
+
+
+def phase_baselines(torch, data):
+    """Path 3: one round of each baseline at 1000 devices.  ``favor`` runs
+    greedy (eps=0), so its fleet cut is the select_topk kernel."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+    cfg = FLConfig(n_devices=1000, k_select=10, rounds=1, l_ep=5,
+                   scenario="high-churn")
+    reset_counts()
+    for name in ("afl", "tifl", "oort", "oort-telemetry", "favor", "fedmarl"):
+        srv = FLServer(cfg, MLPTask(), data, device="cuda")
+        pol = build_policy(name, eps=0.0) if name == "favor" else build_policy(name)
+        res = srv.run_round(pol)
+        check_round(srv, res, cfg.k_select)
+        emit(phase="baseline", policy=name, acc=res.acc, cohort=res.selected.tolist(),
+             probe=len(res.probe_set), host_s=res.host_time_s)
+    counts = read_counts()
+    require(counts["select_topk"] >= 1, counts)
+    emit(phase="baseline_launches", path="baselines", launches=counts)
+
+
+def device_profile(torch, fn):
+    """Run fn under torch.profiler: (wall s, CUDA rows, device-time getter,
+    all rows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = srv.run_round(policy)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    averages = prof.key_averages()
+    rows = [e for e in averages if e.device_type == DeviceType.CUDA]
+    return wall, rows, lambda e: getattr(e, "self_device_time_total", 0.0), averages
+
+
+def phase_il_profile(torch, demos, q):
+    """50 pretraining steps under torch.profiler.  The call also pads and
+    featurizes the demonstrations on the host; a 0-step call, unprofiled,
+    gives that set-up time apart."""
+    from repro_torch.core import pretrain_qnet
+
+    t0 = time.perf_counter()
+    pretrain_qnet(demos, steps=0, qnet_params=q)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    wall, rows, dev_us, averages = device_profile(
+        torch, lambda: pretrain_qnet(demos, steps=50, batch=16, qnet_params=q))
     busy_s = sum(dev_us(e) for e in rows) / 1e6
-    sel_s = sum(dev_us(e) for e in rows
-                if "score_tile_topk" in e.key or "merge_pairs" in e.key) / 1e6
+    pair_s = sum(dev_us(e) for e in rows if "pairwise_rank" in e.key) / 1e6
     top = sorted(rows, key=dev_us, reverse=True)[:8]
-    emit(phase="profile", policy=policy.name, round=res.round, wall_s=wall,
-         device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
+    # where the host's time goes: torch ops by their own CPU time (the rest
+    # of the wall time is Python between them)
+    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    host_op_s = sum(e.self_cpu_time_total for e in host) / 1e6
+    emit(phase="profile", path="pretrain_qnet", steps=50, wall_s=wall,
+         setup_s_unprofiled=setup, device_kernels=sum(e.count for e in rows),
+         device_busy_s=busy_s,
          device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
-         select_topk_device_s=sel_s,
-         top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+         pairwise_rank_device_s=pair_s,
+         pairwise_rank_share_of_busy=(pair_s / busy_s) if busy_s else "not measured",
+         top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top],
+         host_op_s=host_op_s,
+         top_host_ms=[[e.key[:50], e.self_cpu_time_total / 1e3, e.count]
+                      for e in host[:12]])
+
+
+def kernel_entry(name, source, replaces, launches, max_err, row, shape):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "shape": shape}
 
 
 def main() -> int:
@@ -327,6 +704,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.pairwise_rank import kernel as pairwise_rank_kernel
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
 
     # ---- 1: device and build -------------------------------------------
@@ -336,34 +714,56 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY]
     t0 = time.perf_counter()
-    lib = select_topk_kernel.build()
-    ptxas = [ln.strip() for ln in select_topk_kernel.build_log.splitlines()
-             if "Used" in ln or "spill" in ln]
-    emit(phase="build", kernel="select_topk", seconds=time.perf_counter() - t0,
-         library=str(lib.relative_to(ROOT)), ptxas=ptxas)
+    with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
+        built = list(pool.map(lambda lib: lib.build(), libraries))
+    seconds = time.perf_counter() - t0
+    for lib, path in zip(libraries, built):
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+                 if "Used" in ln or "spill" in ln]
+        emit(phase="build", kernel=lib.name, seconds=seconds,
+             library=str(path.relative_to(ROOT)), ptxas=ptxas)
 
     # ---- 2-3: kernels against their plain versions, timings -----------
     max_err = phase_kernel_vs_plain(torch)
     timings = phase_timings(torch, card)
+    pr_err_fwd, pr_err_bwd = phase_pairwise_vs_plain(torch)
+    pr_timings = phase_pairwise_timings(torch, card)
 
-    # ---- 4: the main path ----------------------------------------------
+    # ---- 4: the CPU and the card agree ----------------------------------
     phase_cpu_agreement(torch)
-    launches, srv, policy = phase_main_path(torch)
-    phase_profile(torch, srv, policy)
+    phase_cpu_agreement_policies(torch, small_data(4000, 50))
+    phase_cpu_agreement_il(torch)
 
-    # ---- 5: kernels line, card line, result ----------------------------
+    # ---- 5-7: the paths, each with its own launch counts ---------------
+    t0 = time.perf_counter()
+    data = small_data(64_000, 1000)
+    emit(phase="main_data", samples=64_000, clients=1000,
+         seconds=time.perf_counter() - t0)
+    sync_counts, srv, policy = phase_main_path(torch, data)
+    phase_profile(torch, srv, policy)
+    il_counts, demos, q = phase_il_path(torch, data)
+    phase_il_profile(torch, demos, q)
+    phase_baselines(torch, data)
+
+    # ---- 8: kernels line, card line, result ----------------------------
     main_shape = timings["main_probe_set"]
-    print(json.dumps({"kernels": [{
-        "name": "select_topk", "route": "cuda",
-        "source": "src/repro_torch/csrc/select_topk.cu",
-        "replaces": "src/repro/kernels/select_topk/kernel.py:98",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "shape": {k: main_shape[k] for k in ("n", "f", "h", "k")},
-    }]}), flush=True)
+    il = pr_timings["il_b16_n30"]
+    print(json.dumps({"kernels": [
+        kernel_entry("select_topk", "src/repro_torch/csrc/select_topk.cu",
+                     "src/repro/kernels/select_topk/kernel.py:98",
+                     sync_counts["select_topk"], max_err, main_shape,
+                     {k: main_shape[k] for k in ("n", "f", "h", "k")}),
+        kernel_entry("pairwise_rank_fwd", "src/repro_torch/csrc/pairwise_rank.cu",
+                     "src/repro/kernels/pairwise_rank/kernel.py:61",
+                     il_counts["pairwise_rank_fwd"], pr_err_fwd, il["fwd"],
+                     {"b": 16, "n": 30, "hard": True}),
+        kernel_entry("pairwise_rank_bwd", "src/repro_torch/csrc/pairwise_rank.cu",
+                     "src/repro/kernels/pairwise_rank/kernel.py:61",
+                     il_counts["pairwise_rank_bwd"], pr_err_bwd, il["bwd"],
+                     {"b": 16, "n": 30, "hard": True}),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

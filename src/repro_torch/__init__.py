@@ -9,7 +9,8 @@ each counterpart is easy to find:
     fl          device simulator, scenarios, client training, the synchronous
                 server, aggregation and the policy registry
     core        features, the ranking Q-net, pairwise losses, double-Q
-                learning, FedRank and the random baseline
+                learning, imitation-learning pretraining against the
+                analytical experts, FedRank and the paper's baselines
     kernels     hand-written CUDA kernels with their plain PyTorch versions
     convert     parameter dicts between numpy (the reference's arrays) and
                 torch

@@ -62,6 +62,20 @@ class Paper6FeatureSet:
     def featurize(self, states: np.ndarray) -> np.ndarray:
         return featurize(states)
 
+    def synthetic_states(self, rng: np.random.Generator,
+                         cohort: int) -> np.ndarray:
+        """Plausible random raw states for IL demonstration augmentation
+        (:func:`repro_torch.core.imitation.augment_demonstrations`); the
+        draws come from ``rng`` in the reference's order."""
+        return np.stack([
+            rng.lognormal(3.0, 1.2, cohort),        # t_comp
+            rng.lognormal(2.0, 1.0, cohort),        # t_comm
+            rng.lognormal(1.0, 1.2, cohort),        # e_comp
+            rng.lognormal(0.0, 1.0, cohort),        # e_comm
+            rng.uniform(0.05, 3.0, cohort),         # loss
+            rng.lognormal(5.0, 0.8, cohort),        # data size
+        ], axis=1)
+
 
 class TelemetryFeatureSet(Paper6FeatureSet):
     """Paper block (columns ``[0:6]``) + per-device runtime-history block
@@ -101,6 +115,25 @@ class TelemetryFeatureSet(Paper6FeatureSet):
         sd = h.std(axis=0, keepdims=True) + 1e-6
         hist = ((h - mu) / sd).astype(np.float32)
         return np.concatenate([featurize(s[:, :STATE_DIM]), hist], axis=1)
+
+    def synthetic_states(self, rng: np.random.Generator,
+                         cohort: int) -> np.ndarray:
+        """Paper block first, then a plausible history block drawn column by
+        column in :data:`TELEMETRY_FEATURES` order."""
+        draws = {
+            "online_frac": lambda: rng.uniform(0.05, 1.0, cohort),
+            "comp_mean_s": lambda: rng.lognormal(3.5, 1.0, cohort),
+            "comp_std_s": lambda: rng.lognormal(1.5, 1.0, cohort),
+            "selection_count": lambda: rng.integers(0, 50, cohort
+                                                    ).astype(float),
+            "dropout_rate": lambda: rng.uniform(0.0, 0.5, cohort),
+            "straggler_rate": lambda: rng.uniform(0.0, 0.5, cohort),
+            "staleness_ewma": lambda: rng.lognormal(0.0, 1.0, cohort),
+            "expected_staleness": lambda: rng.lognormal(0.5, 1.0, cohort),
+        }
+        block = np.stack([draws[n]() for n in TELEMETRY_FEATURES], axis=1)
+        return np.concatenate([super().synthetic_states(rng, cohort), block],
+                              axis=1)
 
 
 FeatureSet = Paper6FeatureSet  # structural base: every set shares its surface

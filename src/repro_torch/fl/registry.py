@@ -3,11 +3,21 @@
     from repro_torch.fl.registry import build_policy
     policy = build_policy("fedrank", k=10)
 
-Registered names: ``fedavg`` / ``random`` / ``fedprox`` (uniform random K of
-N; pair ``fedprox`` with ``FLConfig.prox_mu > 0``) and ``fedrank``,
-``fedrank-I``, ``fedrank-P``, ``fedrank-IP`` (the paper's policy and its
-no-IL / no-rank-loss / plain-DQN ablations; pass ``qnet=...`` for
-pretrained Q-net weights and ``device=...`` for where a fresh Q-net lives).
+Registered names (see :func:`available_policies`):
+
+* ``fedavg`` / ``random`` / ``fedprox`` — uniform random K of N (pair
+  ``fedprox`` with ``FLConfig.prox_mu > 0``);
+* ``afl``, ``tifl``, ``oort``, ``oort-telemetry``, ``favor``, ``fedmarl`` —
+  the paper's heuristic and learning baselines (``favor`` takes
+  ``device=...`` for its Q-net);
+* ``fedrank``, ``fedrank-I``, ``fedrank-P``, ``fedrank-IP`` — the paper's
+  policy and its no-IL / no-rank-loss / plain-DQN ablations (pass
+  ``qnet=...`` for IL-pretrained weights from
+  :func:`repro_torch.core.imitation.pretrain_qnet` and ``device=...`` for
+  where a fresh Q-net lives);
+* ``expert-oort``, ``expert-harmony``, ``expert-fedmarl`` — the analytical
+  IL teachers wrapped as probing policies.
+
 Any other name raises ``KeyError`` listing these.
 """
 from __future__ import annotations
@@ -25,7 +35,17 @@ def _populate() -> None:
     importable in either order)."""
     if _POLICIES:
         return
-    from repro_torch.core.baselines import RandomPolicy
+    from repro_torch.core.baselines import (
+        AFLPolicy,
+        ExpertPolicy,
+        FavorPolicy,
+        FedMarlPolicy,
+        OortPolicy,
+        OortTelemetryPolicy,
+        RandomPolicy,
+        TiFLPolicy,
+    )
+    from repro_torch.core.experts import EXPERTS
     from repro_torch.core.fedrank import make_fedrank_variant
 
     def fedrank(variant: str):
@@ -37,11 +57,20 @@ def _populate() -> None:
         "fedavg": lambda **kw: RandomPolicy("fedavg", **kw),
         "random": lambda **kw: RandomPolicy("random", **kw),
         "fedprox": lambda **kw: RandomPolicy("fedprox", **kw),
+        "afl": AFLPolicy,
+        "tifl": TiFLPolicy,
+        "oort": OortPolicy,
+        "oort-telemetry": OortTelemetryPolicy,
+        "favor": FavorPolicy,
+        "fedmarl": FedMarlPolicy,
         "fedrank": fedrank("full"),
         "fedrank-I": fedrank("no_il"),
         "fedrank-P": fedrank("no_rank"),
         "fedrank-IP": fedrank("no_il_no_rank"),
     })
+    for expert in EXPERTS:
+        _POLICIES[f"expert-{expert}"] = (
+            lambda _e=expert, **kw: ExpertPolicy(_e, **kw))
 
 
 def build_policy(name: str, **kw) -> SelectionPolicy:

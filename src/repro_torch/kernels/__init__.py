@@ -1,6 +1,12 @@
 """Kernels written by hand for Hopper, each beside its plain PyTorch version.
 
-    select_topk  fused Q-net scoring -> top-K cohort selection (CUDA C++,
-                 csrc/select_topk.cu); ops.select_topk is the port's
-                 selection path
+    select_topk    fused Q-net scoring -> top-K cohort selection (CUDA C++,
+                   csrc/select_topk.cu); ops.select_topk is the port's
+                   selection path
+    pairwise_rank  masked pairwise RankNet loss, forward and score gradient
+                   (CUDA C++, csrc/pairwise_rank.cu); ops.pairwise_rank is
+                   the imitation-learning objective
+
+``_build`` compiles each source with ``nvcc`` at first use and binds it with
+``ctypes``.
 """

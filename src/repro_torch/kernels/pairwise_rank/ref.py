@@ -1,0 +1,49 @@
+"""Plain PyTorch version of the pairwise RankNet loss over masked cohorts.
+
+Loss (paper Eq. 3-4) over all ordered pairs i != j of valid entries of each
+batch row:
+
+    P_ij    = sigma(s_i - s_j)
+    Pbar_ij = sigma(t_i - t_j)           (soft), or 1 / 0 / 0.5 by the sign
+                                         of t_i - t_j (hard: imitation)
+    L       = sum_ij pm_ij BCE(P_ij ; Pbar_ij) / max(sum_ij pm_ij, 1)
+
+with ``pm_ij = m_i m_j`` and the diagonal knocked out.  This is the
+semantics the CUDA kernels (:mod:`repro_torch.kernels.pairwise_rank.kernel`)
+are held to; its autograd gradient is what the gradient kernel is held to.
+It materialises (B, N, N) matrices.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def pair_targets(targets: torch.Tensor, hard: bool) -> torch.Tensor:
+    """(B, N) -> (B, N, N) target pair probabilities."""
+    d = targets[..., :, None] - targets[..., None, :]
+    if hard:
+        return torch.where(d > 0, 1.0, torch.where(d < 0, 0.0, 0.5))
+    return torch.sigmoid(d)
+
+
+def pairwise_rank_sums(scores: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor, hard: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scores, targets, mask (B, N) -> (sum of pm * BCE (B,), count (B,))."""
+    s, t, m = scores.float(), targets.float(), mask.float()
+    logits = s[..., :, None] - s[..., None, :]
+    tgt = pair_targets(t, hard)
+    eye = torch.eye(s.shape[-1], dtype=torch.float32, device=s.device)
+    pm = m[..., :, None] * m[..., None, :] * (1.0 - eye)
+    bce = (torch.clamp(logits, min=0.0) - logits * tgt
+           + torch.log1p(torch.exp(-logits.abs())))
+    return (bce * pm).sum(dim=(-2, -1)), pm.sum(dim=(-2, -1))
+
+
+def pairwise_rank_ref(scores: torch.Tensor, targets: torch.Tensor,
+                      mask: torch.Tensor, hard: bool = False) -> torch.Tensor:
+    """scores, targets, mask (B, N) -> mean pair BCE per row (B,), fp32."""
+    total, count = pairwise_rank_sums(scores, targets, mask, hard)
+    return total / torch.clamp(count, min=1.0)

@@ -8,10 +8,11 @@ FLOPs against (F + 2)·4·N bytes) and the two-pass design: one CTA per
 fixed-order tree of pairwise merges keeps the best K_pad.  The result is
 exact and deterministic.
 
-The library is compiled with ``nvcc`` at first use into ``build/kernels/`` at
-the repository root (named by a hash of the source and flags, so an edited
-source rebuilds) and bound with ``ctypes``.  Nothing is built or imported
-when this module is imported.
+``LIBRARY`` (:class:`~repro_torch.kernels._build.CudaLibrary`) compiles the
+source with ``nvcc`` at first use into ``build/kernels/`` at the repository
+root (named by a hash of the source and flags, so an edited source rebuilds)
+and binds it with ``ctypes``.  Nothing is built when this module is
+imported.
 
 :func:`select_topk_cuda` launches the kernel for CUDA tensors and takes the
 plain version (:func:`~repro_torch.kernels.select_topk.ref.select_topk_ref`)
@@ -21,17 +22,11 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.select_topk.ref import select_topk_ref
 
 TILE = 256            # candidates per CTA in pass 1 (select_topk.cu TILE)
@@ -39,65 +34,15 @@ MAX_F = 64
 MAX_H = 128
 MAX_K = 1024          # k is padded to K_pad = ceil(k / 8) * 8 <= 1024
 
-_PKG = Path(__file__).resolve().parents[2]                  # src/repro_torch
-SOURCE = _PKG / "csrc" / "select_topk.cu"
-BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-build_log = ""        # nvcc's output of the last build (-Xptxas -v: registers,
-#                       shared memory, spills per kernel)
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.select_topk_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the select_topk CUDA kernel is built from source")
-
-
-def library_path() -> Path:
-    """Where the built library lives: named by a hash of source + flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libselect_topk-{digest}.so"
-
-
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; returns its path."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)                   # atomic: readers never see a partial file
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.select_topk_launch
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p] * 5)
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+LIBRARY = CudaLibrary("select_topk", _bind)
 
 
 def k_padded(k: int) -> int:
@@ -151,7 +96,7 @@ def select_topk_cuda(params: Dict[str, torch.Tensor], feats: torch.Tensor,
                         ("b2", (h,)), ("w3", (h, 1)), ("b3", (1,))):
         _check(name, params[name], shape, dev)
 
-    lib = _load()
+    lib = LIBRARY.load()
     k_pad = k_padded(k)
     n_tiles = -(-n // TILE)
     n_scratch = (n_tiles + -(-n_tiles // 2)) * k_pad

@@ -15,6 +15,7 @@ import torch
 
 import repro_torch
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.imitation import augment_demonstrations, pretrain_qnet
 from repro_torch.core.qnet import init_qnet
 from repro_torch.data import FederatedData, dirichlet_partition, make_classification_data
 from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
@@ -42,8 +43,16 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "src/repro_torch/fl/server.py",
                  "src/repro_torch/core/fedrank.py",
-                 "src/repro_torch/kernels/select_topk/kernel.py"):
+                 "src/repro_torch/kernels/select_topk/kernel.py",
+                 "src/repro_torch/kernels/_build.py",
+                 "src/repro_torch/kernels/pairwise_rank/kernel.py",
+                 "src/repro_torch/kernels/pairwise_rank/ops.py",
+                 "src/repro_torch/kernels/pairwise_rank/ref.py",
+                 "src/repro_torch/core/experts.py",
+                 "src/repro_torch/core/imitation.py",
+                 "src/repro_torch/core/baselines.py"):
         assert want in names
+    assert (ROOT / "src/repro_torch/csrc/pairwise_rank.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -78,6 +87,11 @@ def test_entry_points_refuse_missing_card(device):
     with pytest.raises(RuntimeError, match="cuda"):
         build_policy("fedrank", k=3, device=device)
     with pytest.raises(RuntimeError, match="cuda"):
+        build_policy("favor", device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain_qnet(augment_demonstrations([], n_synthetic=2), steps=1,
+                      device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
         FLServer(FLConfig(n_devices=10, k_select=2), MLPTask(), _tiny_data(),
                  device=device)
 
@@ -105,4 +119,4 @@ def test_unported_config_is_refused(field, value, slice_name):
 
 def test_unknown_policy_lists_registered():
     with pytest.raises(KeyError, match="fedrank-IP"):
-        build_policy("oort")
+        build_policy("no-such-policy")
