@@ -7,19 +7,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device and build — refuses to run without CUDA, prints the card's name and
    power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
-   (``select_topk`` and ``pairwise_rank``, one ``nvcc`` each, started
-   together) and prints ``ptxas``'s registers and spills;
+   (``select_topk``, ``pairwise_rank`` and ``fleet_state``, one ``nvcc``
+   each, started together) and prints ``ptxas``'s registers and spills;
 2. every kernel against its plain PyTorch version on the card, with the
    tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
-   patterns, hidden widths and its limits; ``pairwise_rank`` forward loss and
-   score gradient over N in {1, 2, 7, 30, 127, 128, 129, 1000, 8192}, B in
-   {1, 16}, hard and soft targets, plus all-masked rows, duplicated scores,
-   tied targets and a fractional mask;
+   patterns, hidden widths, feature widths past shared memory (F=96,
+   H=256; F=600) and k past 1024 (k=2000 at N=1e5); ``pairwise_rank``
+   forward loss and score gradient over N in {1, 2, 7, 30, 127, 128, 129,
+   1000, 8192}, B in {1, 16, 70000}, hard and soft targets, plus all-masked
+   rows, duplicated scores, tied targets and a fractional mask;
+   ``fleet_state`` with exact equality over both trace fixtures at fleet
+   sizes 1 to 1e6, the split-time edge cases, random traces and a
+   1024-device four-week synthetic trace at 1e5 queries;
 3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
-   version's and the least time the card could take (the bound);
+   version's, the least time the card could take (the bound) and, for
+   ``fleet_state``, ``torch.searchsorted`` over the f64 key;
 4. the CPU and the card agree: one round of every policy at 50 devices picks
-   the same cohorts, and 5 imitation-pretraining steps from the same Q-net
-   give the same Q-net;
+   the same cohorts, 5 imitation-pretraining steps from the same Q-net give
+   the same Q-net, and an asynchronous trace run schedules the same jobs;
 5. path 1, synchronous rounds: ``FLServer`` at 1000 devices on the card,
    ``fedavg`` then ``fedrank`` (cold start), then one more FedRank round
    under ``torch.profiler``;
@@ -29,7 +34,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    FedRank rounds from the pretrained Q-net; 50 more pretraining steps under
    ``torch.profiler``;
 7. path 3, one round of each baseline at 1000 devices;
-8. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
+8. path 4, trace replay: 3 ``fedavg`` and 3 ``fedrank`` synchronous rounds
+   on ``trace-synthetic-week`` at 1000 devices;
+9. path 5, the asynchronous engine (``mode="async"``, concurrency 3k,
+   polynomial staleness, k=10): ``fedavg`` and ``fedrank`` for 5
+   aggregations each on ``trace-synthetic-week`` and ``fedrank`` on
+   ``high-churn``, one more aggregation under ``torch.profiler``, and the
+   batched event loop against its sequential oracle;
+10. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
 
 Every kernel wrapper counts its launches.  Each path is driven with every
 count set to 0 just before it and read just after; launches made to compare
@@ -41,7 +53,11 @@ version's adjacent score gap exceeds twice that; indices exactly equal where
 scores tie exactly (duplicated rows, quantised scores, masked rows).
 ``pairwise_rank``: loss within 1e-5 * max(1, |loss|); gradient within 1e-5 *
 max |g_ref| of its row, and exactly 0 on an all-masked row (fp32 pair sums
-in another order; the kernels add fp32 tile sums in fp64).
+in another order; the forward adds fp32 tile sums in fp64, the gradient is
+fp64 throughout).  The plain version is evaluated in fp64 on the same fp32
+inputs: among 70,000 random cohorts some rows' pair terms nearly cancel,
+and an fp32 evaluation of either side cannot resolve 1e-5 of what is left.  ``fleet_state``:
+exactly equal (the kernel computes the plain version's count).
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -173,11 +189,13 @@ def _wrappers():
         pairwise_rank_bwd_cuda,
         pairwise_rank_fwd_cuda,
     )
+    from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
 
     return {"select_topk": select_topk_cuda,
             "pairwise_rank_fwd": pairwise_rank_fwd_cuda,
-            "pairwise_rank_bwd": pairwise_rank_bwd_cuda}
+            "pairwise_rank_bwd": pairwise_rank_bwd_cuda,
+            "fleet_state": segment_index_cuda}
 
 
 def reset_counts() -> None:
@@ -217,8 +235,8 @@ def pairwise_inputs(torch, b, n, seed, *, masked_frac=0.3, case="random"):
 
 
 def pairwise_plain(torch, s, t, m, hard):
-    """Plain loss (B,) and autograd score gradient (B, N); row by row where
-    the (B, N, N) matrices would be large."""
+    """Plain loss (B,) and autograd score gradient (B, N), in the inputs'
+    precision; row by row where the (B, N, N) matrices would be large."""
     from repro_torch.kernels.pairwise_rank.ref import pairwise_rank_ref
 
     rows = [slice(0, s.shape[0])] if s.shape[0] * s.shape[1] ** 2 <= 2**26 else [
@@ -235,8 +253,10 @@ def pairwise_plain(torch, s, t, m, hard):
 
 def pairwise_bound_ms(torch, m, kind, hard):
     """Least time for one call: the operations on the valid pairs this mask
-    gives (pm != 0), or the bytes (inputs read once, outputs written once)
-    over HBM bandwidth, whichever is larger."""
+    gives (pm != 0) over the fp32 rate, the type of the function's inputs
+    and outputs (the gradient kernel computes in fp64, which this bound does
+    not credit), or the bytes (inputs read once, outputs written once) over
+    HBM bandwidth, whichever is larger."""
     b, n = m.shape
     nz = (m != 0).double().sum(1)
     pairs = float((nz * nz - nz).sum())
@@ -273,13 +293,25 @@ def phase_kernel_vs_plain(torch):
              exact=True, name="duplicate-rows"),
         dict(n=100_000, f=14, k=64, seed=9, zero_net=True, int_bias=True,
              masked_frac=0.2, exact=True, name="quantised-scores"),
-        # the kernel's other hidden-width variants and its limits: H=20 pads
-        # to 32; F=64, H=128 needs more than 48 KB of shared memory; k=1000
-        # keeps more than a tile's 256 rows per list
+        # the kernel's other hidden-width variants: H=20 pads to 32; F=64,
+        # H=128 needs more than 48 KB of shared memory; k=1000 keeps more
+        # than a tile's 256 rows per list
         dict(n=3000, f=3, h=20, k=10, seed=10, name="hidden-32"),
         dict(n=5000, f=64, h=128, k=64, seed=11, name="f64-hidden-128"),
         dict(n=100_000, f=6, k=1000, seed=12, name="k-1000"),
         dict(n=1000, f=6, k=1000, seed=13, name="k-equals-n"),
+        # past the first design's caps (F <= 64, H <= 128, k <= 1024): the
+        # wide scorer (weights through the read-only cache, activations in
+        # a scratch) and merges of lists longer than 1024
+        dict(n=5000, f=96, h=256, k=64, seed=14, name="wide-f96-h256"),
+        dict(n=100_000, f=96, h=256, k=64, seed=15, name="wide-f96-h256"),
+        dict(n=20_000, f=1000, h=64, k=10, seed=16, name="wide-f1000"),
+        dict(n=3000, f=200, h=128, k=64, seed=17, name="smem-f200-h128"),
+        dict(n=100_000, f=6, k=2000, seed=18, name="k-2000"),
+        dict(n=100_000, f=6, k=5000, seed=19, masked_frac=0.97, name="k-5000"),
+        dict(n=4000, f=6, k=4000, seed=20, name="k-equals-n-4000"),
+        dict(n=30_000, f=96, h=256, k=2000, seed=21, dup_groups=900,
+             masked_frac=0.2, exact=True, name="wide-k2000-duplicate-rows"),
     ]
     max_err, summary = 0.0, []
     for c in cases:
@@ -315,14 +347,18 @@ def phase_timings(torch, card):
     # 1e6 candidates; the main path's fleet cut (probe_set, N=1000, k=20)
     # and its probe-cohort ordering (select, N=25, k=25)
     # and the "telemetry" feature width (F=14) at 1e6
-    for label, n, f, k in (("fleet_1e6", 1_000_000, 6, 64),
-                           ("fleet_1e6_f14", 1_000_000, 14, 64),
-                           ("main_probe_set", 1000, 6, 20), ("main_select", 25, 6, 25)):
-        params, feats, mask, bias = topk_inputs(torch, n, f, seed=n + f)
+    # and, past the first design's caps, a wide net (F=96, H=256) and k=2000
+    for label, n, f, h, k in (("fleet_1e6", 1_000_000, 6, HIDDEN, 64),
+                              ("fleet_1e6_f14", 1_000_000, 14, HIDDEN, 64),
+                              ("main_probe_set", 1000, 6, HIDDEN, 20),
+                              ("main_select", 25, 6, HIDDEN, 25),
+                              ("wide_f96_h256", 100_000, 96, 256, 64),
+                              ("k2000", 100_000, 6, HIDDEN, 2000)):
+        params, feats, mask, bias = topk_inputs(torch, n, f, seed=n + f, h=h)
         ms = cuda_ms(torch, lambda: select_topk_cuda(params, feats, mask, bias, k=k))
         plain = cuda_ms(torch, lambda: select_topk_ref(params, feats, mask, bias, k=k))
-        bound, bound_by = topk_bound_ms(n, f, HIDDEN, k)
-        rows[label] = dict(n=n, f=f, h=HIDDEN, k=k, ms=ms, plain_ms=plain,
+        bound, bound_by = topk_bound_ms(n, f, h, k)
+        rows[label] = dict(n=n, f=f, h=h, k=k, ms=ms, plain_ms=plain,
                            bound_ms=bound, bound_by=bound_by)
         emit(phase="timing", kernel="select_topk", shape=label, card=card,
              **rows[label])
@@ -431,6 +467,8 @@ def phase_pairwise_vs_plain(torch):
     cases = [dict(b=b, n=n, hard=hard, case="random")
              for n in (1, 2, 7, 30, 127, 128, 129, 1000, 8192)
              for b in (1, 16) for hard in (True, False)]
+    # past grid.y's 65,535 rows: the launch loops over row chunks
+    cases += [dict(b=70_000, n=8, hard=hard, case="random") for hard in (True, False)]
     for hard in (True, False):
         cases += [dict(b=16, n=30, hard=hard, case="all-masked"),
                   dict(b=16, n=129, hard=hard, case="duplicated-scores"),
@@ -443,7 +481,8 @@ def phase_pairwise_vs_plain(torch):
         x = s.clone().requires_grad_(True)
         loss = pairwise_rank(x, t, m, hard=c["hard"])
         (grad,) = torch.autograd.grad(loss.sum(), x)
-        ref_loss, ref_grad = pairwise_plain(torch, s, t, m, c["hard"])
+        ref_loss, ref_grad = pairwise_plain(torch, s.double(), t.double(),
+                                            m.double(), c["hard"])
         torch.cuda.synchronize()
         loss, ref_loss = loss.detach().double(), ref_loss.double()
         e_loss = (loss - ref_loss).abs()
@@ -482,7 +521,7 @@ def phase_pairwise_timings(torch, card):
 
     rows = {}
     for label, b, n in (("il_b16_n30", 16, 30), ("b1_n8192", 1, 8192),
-                        ("b1_n65536", 1, 65536)):
+                        ("b1_n65536", 1, 65536), ("b70000_n8", 70_000, 8)):
         s, t, m = pairwise_inputs(torch, b, n, seed=b + n, masked_frac=0.0)
         _, count = pairwise_rank_fwd_cuda(s, t, m, hard=True)
         g = torch.ones(b, device="cuda")
@@ -689,6 +728,402 @@ def phase_il_profile(torch, demos, q):
                       for e in host[:12]])
 
 
+# ---------------------------------------------------------------------------
+# fleet_state: inputs, comparison, bound
+# ---------------------------------------------------------------------------
+
+DAY_S = 86400.0
+WEEK_S = 7 * DAY_S
+
+
+def fleet_args(torch, tr, src, t):
+    """The kernel's four inputs for source devices ``src`` at absolute times
+    ``t``: the trace's resident segment table and the split queries."""
+    import numpy as np
+
+    from repro_torch.kernels.fleet_state.ops import _split_times
+
+    segs = tr.resident("cuda")
+    qi, qf = _split_times(np.asarray(t, np.float64) % tr.period_s)
+    dev = torch.device("cuda")
+    return (segs,
+            torch.as_tensor(np.asarray(src).astype(np.int32), device=dev),
+            torch.as_tensor(qi, device=dev), torch.as_tensor(qf, device=dev))
+
+
+def fleet_plain(args):
+    """The plain version on the kernel's inputs (the table's column views)."""
+    from repro_torch.kernels.fleet_state.ref import segment_index_ref
+
+    segs, src, qi, qf = args
+    return segment_index_ref(segs.dev, segs.ti, segs.tf, src, qi, qf)
+
+
+def fleet_args_resampled(torch, tr, n, seed, t_s):
+    fleet = tr.resample(n, seed=seed, device="cuda")
+    return fleet_args(torch, tr, fleet.src, t_s + fleet.phase_s)
+
+
+def edge_queries(tr, rng, n_extra=2000):
+    """Every segment start, +-1 s and +-eps around it, fractions that round
+    to 1.0 in f32, the period's last second, random times, and padding
+    (src = -1) and past-the-last devices."""
+    import numpy as np
+
+    src, t = [], []
+    for d in range(tr.n_devices):
+        starts, _ = tr.segments_of(d)
+        for s0 in starts:
+            for dt in (0.0, -1.0, 1.0, -1e-6, 1e-6, 0.99999999, -1e-8):
+                src.append(d)
+                t.append(s0 + dt)
+        src += [d, d, d]
+        t += [tr.period_s - 1e-9, tr.period_s - 1.0, 5.99999999]
+    src += list(rng.integers(0, tr.n_devices, size=n_extra))
+    t += list(rng.uniform(0.0, 3 * tr.period_s, size=n_extra))
+    src += [-1, -1, tr.n_devices, tr.n_devices + 5]
+    t += [0.0, 100.0, 0.0, 7.5]
+    return np.asarray(src, np.int64), np.asarray(t, np.float64)
+
+
+def random_events(rng, n_dev, max_segs, period, fractional=False, one_seg=0):
+    events = {}
+    for d in range(n_dev):
+        k = 1 if d < one_seg else int(rng.integers(1, max_segs + 1))
+        t = rng.choice(int(period), size=k, replace=False).astype(float)
+        if fractional:
+            t = t + (rng.random(k) * (t > 0)).round(4)
+        events[f"d{d:04d}"] = [(float(x), int(rng.integers(0, 4))) for x in t]
+    return events
+
+
+def fleet_bound_ms(n, s):
+    """Least time for one call: the bytes (src, qi, qf in and idx out per
+    query, the three segment arrays) over HBM bandwidth, or the search's
+    operations (ceil(log2(S + 1)) probes of ~8 compares and selects each)
+    over the fp32 rate, whichever is larger."""
+    nbytes = 16.0 * n + 12.0 * s
+    ops = 8.0 * n * math.ceil(math.log2(s + 1))
+    t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def large_trace():
+    """A 1024-device four-week synthetic trace: the large-S timing case."""
+    from repro_torch.fl.traces import SyntheticTraceSpec, synthesize_trace
+
+    return synthesize_trace(SyntheticTraceSpec(n_devices=1024, days=28, seed=0))
+
+
+def phase_fleet_state_vs_plain(torch, big):
+    """The kernel against its plain version, exactly equal, on: both trace
+    fixtures at fleet sizes 1 to 1e6 and four trace times; the edge cases
+    on a week-scale trace with one-segment devices; random traces with
+    whole-second and fractional starts; the 1024-device four-week trace at
+    1e5 queries."""
+    import numpy as np
+
+    from repro_torch.fl.traces import (
+        SyntheticTraceSpec,
+        compile_events,
+        read_trace_csv,
+        sample_trace_path,
+        synthesize_trace,
+    )
+    from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
+
+    week = synthesize_trace(SyntheticTraceSpec(n_devices=32, days=7, seed=11))
+    livelab = read_trace_csv(sample_trace_path())
+    rng = np.random.default_rng(0)
+    cases = []
+    for name, tr in (("synthetic-week", week), ("livelab", livelab)):
+        for n in (1, 7, 1000, 100_000, 1_000_000):
+            for t_s in (0.0, 5 * 3600.0, tr.period_s - 1.0, 2.5 * tr.period_s):
+                cases.append((f"{name}-fleet", tr, fleet_args_resampled(
+                    torch, tr, n, n % 97, t_s)))
+    edge = compile_events(random_events(rng, 40, 60, WEEK_S, one_seg=5), WEEK_S)
+    for name, tr in (("edge-week", edge), ("edge-synthetic-week", week),
+                     ("edge-livelab", livelab)):
+        cases.append((name, tr, fleet_args(torch, tr, *edge_queries(tr, rng))))
+    for i, (n_dev, max_segs, period, frac) in enumerate((
+            (1, 1, DAY_S, False), (3, 200, DAY_S, True), (100, 30, 3 * DAY_S, False),
+            (500, 80, WEEK_S, True), (2000, 5, 30 * DAY_S, False))):
+        tr = compile_events(random_events(rng, n_dev, max_segs, period, frac), period)
+        src, t = edge_queries(tr, rng, n_extra=50_000)
+        cases.append((f"random-{i}", tr, fleet_args(torch, tr, src, t)))
+    # the plain version's chunked count costs N * S compares: 1e5 queries
+    # here (3e10), the kernel alone is timed at 1e6
+    cases.append(("large-1024dev-28d", big, fleet_args_resampled(
+        torch, big, 100_000, 3, 1.5 * DAY_S)))
+    summary = []
+    for name, tr, args in cases:
+        got = segment_index_cuda(*args)
+        want = fleet_plain(args)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.int32 and bool(torch.equal(got, want)),
+                f"fleet_state differs from its plain version on {name}: "
+                f"{int((got != want).sum())} of {len(want)}")
+        summary.append([name, tr.n_segments, int(args[1].numel())])
+    emit(phase="kernel_vs_plain", kernel="fleet_state", cases=len(cases),
+         tolerance="exact", max_abs_err=0, large_trace_segments=big.n_segments,
+         results=[["case", "S", "N"]] + summary)
+    return 0.0
+
+
+def phase_fleet_state_timings(torch, card, big):
+    """The kernel at the smoke fleet's lookup (1000 devices) on both trace
+    fixtures and at 1e6 queries on the synthetic week and on the large
+    trace, beside its plain version, its bound and ``torch.searchsorted``
+    over the f64 key ``dev * period + t_start`` (the reference's host path
+    in one call; timed here, used nowhere in the port)."""
+    import numpy as np
+
+    from repro_torch.fl.traces import (
+        SyntheticTraceSpec,
+        read_trace_csv,
+        sample_trace_path,
+        synthesize_trace,
+    )
+    from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
+
+    week = synthesize_trace(SyntheticTraceSpec(n_devices=32, days=7, seed=11))
+    livelab = read_trace_csv(sample_trace_path())
+    rows = {}
+    for label, tr, n in (("main_week", week, 1000), ("main_livelab", livelab, 1000),
+                         ("week_1e6", week, 1_000_000), ("large_1e6", big, 1_000_000)):
+        fleet = tr.resample(n, seed=1, device="cuda")
+        t = 5 * 3600.0 + fleet.phase_s
+        args = fleet_args(torch, tr, fleet.src, t)
+        dev = torch.device("cuda")
+        seg_key = torch.as_tensor(tr._seg_dev * tr.period_s + tr.t_start, device=dev)
+        q_key = torch.as_tensor(fleet.src * tr.period_s + t % tr.period_s, device=dev)
+        lib_idx = torch.searchsorted(seg_key, q_key, right=True) - 1
+        got = segment_index_cuda(*args)
+        torch.cuda.synchronize()
+        # the plain count at 1e6 x 3e5 segments is 3e11 compares: not timed
+        small = n * tr.n_segments <= 1e10
+        rows[label] = dict(
+            n=n, s=tr.n_segments,
+            ms=cuda_ms(torch, lambda: segment_index_cuda(*args)),
+            plain_ms=(cuda_ms(torch, lambda: fleet_plain(args))
+                      if small else None),
+            library_ms=cuda_ms(torch, lambda: torch.searchsorted(
+                seg_key, q_key, right=True)),
+            library_agrees=bool(torch.equal(lib_idx.int(), got)))
+        rows[label]["bound_ms"], rows[label]["bound_by"] = fleet_bound_ms(
+            n, tr.n_segments)
+        emit(phase="timing", kernel="fleet_state", shape=label, card=card,
+             **rows[label])
+    return rows
+
+
+def check_async_history(torch, srv, hist, k):
+    """Each aggregation merges unique devices, at most k of them, with a
+    finite outcome; the virtual clock never runs backwards."""
+    last = -1.0
+    for res in hist:
+        sel = res.selected.tolist()
+        require(len(sel) == len(set(sel)) <= k, sel)
+        require(math.isfinite(res.acc) and math.isfinite(res.test_loss))
+        require(res.cum_time >= last, (res.cum_time, last))
+        last = res.cum_time
+    for key, t in srv.global_params.items():
+        require(t.is_cuda and bool(torch.isfinite(t).all()), key)
+
+
+def record_jobs(engine):
+    """Log every job an async engine schedules: (device, version, dispatch
+    order, wave, duration, energy, dropout point, probe-only)."""
+    log = []
+    add = engine._add_job
+
+    def recording_add(cid, **kw):
+        log.append((int(cid), engine.version, engine._seq, engine.cycle,
+                    kw["duration"], kw["energy"], kw["fail_at"],
+                    kw["params"] is None))
+        add(cid, **kw)
+
+    engine._add_job = recording_add
+    return log
+
+
+def start_before_first_change(srv):
+    """Fast-forward a trace scenario's pool so that the first round driven
+    next (a sync round, or an async engine's start) is the last one before
+    the fleet's first availability change, found by ``next_transition`` (on
+    the card, fleet_state lookups): trace-synthetic-week keeps every device
+    online for its first hours, so a run from hour 0 would never see one go
+    offline.  Returns the number of devices online until that change."""
+    first = srv.pool.next_transition()
+    require(first is not None and first >= 2, ("no availability change", first))
+    srv.pool.advance_to(first - 2)        # driving advances one round first
+    return int(srv.pool.available().sum())
+
+
+def require_transitions(hist, n_start, n_devices, what):
+    """Some round or aggregation saw devices offline, and a different number
+    online than before the fleet's first change: the clock went through a
+    verified transition."""
+    seen = [r.n_available for r in hist]
+    require(min(seen) < n_devices and any(n != n_start for n in seen),
+            (what, "no availability change seen", n_start, seen))
+
+
+def phase_cpu_agreement_async(torch):
+    """An asynchronous fedavg run on trace-synthetic-week at 50 devices on
+    the CPU and on the card, from the same seeds: the same jobs at the same
+    virtual times, the same cohorts, outcomes close.  On the card every
+    availability lookup is the fleet_state kernel."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+    from repro_torch.fl.async_engine import AsyncRoundEngine
+
+    data = small_data(4000, 50)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = FLConfig(n_devices=50, k_select=5, rounds=3, l_ep=2, seed=3,
+                       scenario="trace-synthetic-week", mode="async",
+                       async_concurrency=15, staleness="polynomial")
+        srv = FLServer(cfg, MLPTask(), data, device=dev)
+        start_before_first_change(srv)
+        eng = AsyncRoundEngine(srv, build_policy("fedavg"))
+        log = record_jobs(eng)
+        runs[dev] = (log, eng.run(3))
+    (la, ha), (lb, hb) = runs["cpu"], runs["cuda"]
+    require(la == lb, "the CPU and the card scheduled different jobs")
+    for a, b in zip(ha, hb):
+        require(a.selected.tolist() == b.selected.tolist(), (a.selected, b.selected))
+        require((a.cum_time, a.cum_energy) == (b.cum_time, b.cum_energy))
+        require(a.n_available == b.n_available, (a.n_available, b.n_available))
+        require(abs(a.acc - b.acc) <= 2e-3 and abs(a.test_loss - b.test_loss) <= 1e-3)
+    emit(phase="cpu_vs_card", path="async_trace", jobs=len(lb),
+         cum_time=[r.cum_time for r in hb], n_available=[r.n_available for r in hb],
+         acc_cpu=[r.acc for r in ha],
+         acc_card=[r.acc for r in hb])
+
+
+def phase_trace_path(torch, data):
+    """Path 4: synchronous rounds replaying trace-synthetic-week at 1000
+    devices from the hour before its fleet's first availability change:
+    every round's loads and mask are fleet_state lookups, and devices go
+    offline."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+    cfg = FLConfig(n_devices=1000, k_select=10, rounds=3, l_ep=5,
+                   scenario="trace-synthetic-week")
+    reset_counts()                                # every count to 0
+    for name in ("fedavg", "fedrank"):
+        srv = FLServer(cfg, MLPTask(), data, device="cuda")
+        policy = build_policy(name, k=10) if name == "fedrank" else build_policy(name)
+        n_start = start_before_first_change(srv)
+        hist = []
+        for _ in range(cfg.rounds):
+            res = srv.run_round(policy)
+            check_round(srv, res, cfg.k_select)
+            hist.append(res)
+            emit(phase="trace_sync", policy=name, round=res.round,
+                 trace_hour=srv.pool.round_idx, acc=res.acc,
+                 n_available=res.n_available, r_t=res.r_t,
+                 cohort=res.selected.tolist(), host_s=res.host_time_s)
+        require_transitions(hist, n_start, cfg.n_devices, f"trace_sync/{name}")
+    counts = read_counts()                        # read just after
+    require(counts["fleet_state"] > 0 and counts["select_topk"] >= 2 * cfg.rounds,
+            counts)
+    emit(phase="trace_sync_launches", path="trace_sync", launches=counts)
+    return counts
+
+
+def phase_async_path(torch, data):
+    """Path 5: the asynchronous engine through ``FLServer.run`` with the
+    example's async settings; counts reset before and read after each run."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+    per_run, keep = {}, None
+    for name, scenario in (("fedavg", "trace-synthetic-week"),
+                           ("fedrank", "trace-synthetic-week"),
+                           ("fedrank", "high-churn")):
+        cfg = FLConfig(n_devices=1000, k_select=10, rounds=5, l_ep=5,
+                       scenario=scenario, mode="async", async_concurrency=30,
+                       staleness="polynomial")
+        srv = FLServer(cfg, MLPTask(), data, device="cuda")
+        policy = build_policy(name, k=10) if name == "fedrank" else build_policy(name)
+        trace = scenario.startswith("trace")
+        n_start = start_before_first_change(srv) if trace else None
+        reset_counts()                            # every count to 0
+        t0 = time.perf_counter()
+        hist = srv.run(policy)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()                    # read just after
+        check_async_history(torch, srv, hist, cfg.k_select)
+        for res in hist:
+            emit(phase="async", policy=name, scenario=scenario, agg=res.round,
+                 version=res.round + 1, acc=res.acc, t_virtual_s=res.cum_time,
+                 r_t=res.r_t, mean_staleness=res.mean_staleness,
+                 max_staleness=res.max_staleness, pending=res.n_pending,
+                 n_available=res.n_available, cohort=res.selected.tolist(),
+                 host_s=res.host_time_s)
+        if trace:
+            require_transitions(hist, n_start, cfg.n_devices, f"async/{name}")
+        require((counts["fleet_state"] > 0) == trace, (scenario, counts))
+        require(name != "fedrank" or counts["select_topk"] > 0, counts)
+        key = f"{name}/{scenario}"
+        per_run[key] = dict(launches=counts, seconds=seconds,
+                            host_s_per_aggregation=[r.host_time_s for r in hist],
+                            t_virtual_s=hist[-1].cum_time,
+                            trace_hours=srv.pool.round_idx,
+                            n_available=[r.n_available for r in hist])
+        emit(phase="async_launches", path="async", run=key, **per_run[key])
+        if name == "fedrank" and trace:
+            keep = (srv, policy)
+    return per_run, keep
+
+
+def phase_async_profile(torch, srv, policy):
+    """One more aggregation under torch.profiler (a fresh engine, so the
+    window includes refilling the concurrency slots)."""
+    wall, rows, dev_us, _ = device_profile(torch, lambda: srv.run(policy, rounds=1))
+    busy_s = sum(dev_us(e) for e in rows) / 1e6
+    fleet_s = sum(dev_us(e) for e in rows if "segment_index" in e.key) / 1e6
+    sel_s = sum(dev_us(e) for e in rows
+                if "score_tile_topk" in e.key or "merge_pairs" in e.key) / 1e6
+    top = sorted(rows, key=dev_us, reverse=True)[:8]
+    emit(phase="profile", path="async", policy=policy.name, wall_s=wall,
+         device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
+         device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
+         fleet_state_device_s=fleet_s, select_topk_device_s=sel_s,
+         fleet_state_launches=sum(e.count for e in rows if "segment_index" in e.key),
+         top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+
+
+def phase_async_oracle(torch, data):
+    """The batched event loop against its one-event-at-a-time oracle on the
+    card, through trace-synthetic-week's first availability changes: the
+    same jobs, cohorts, clock and bit-identical parameters."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+    from repro_torch.fl.async_engine import AsyncRoundEngine
+
+    out = {}
+    for events in ("sequential", "batched"):
+        cfg = FLConfig(n_devices=1000, k_select=10, rounds=3, l_ep=2, seed=1,
+                       scenario="trace-synthetic-week", mode="async",
+                       async_concurrency=30, staleness="polynomial",
+                       async_events=events)
+        srv = FLServer(cfg, MLPTask(), data, device="cuda")
+        n_start = start_before_first_change(srv)
+        eng = AsyncRoundEngine(srv, build_policy("fedrank", k=10, seed=0))
+        log = record_jobs(eng)
+        hist = eng.run(3)
+        require_transitions(hist, n_start, cfg.n_devices, f"oracle/{events}")
+        out[events] = (log, [(r.selected.tolist(), r.cum_time, r.cum_energy,
+                              r.mean_staleness, r.n_available, r.acc) for r in hist],
+                       eng.now, srv.global_params)
+    (la, ha, na, pa), (lb, hb, nb, pb) = out["sequential"], out["batched"]
+    require(la == lb and ha == hb and na == nb, "batched != sequential oracle")
+    require(all(bool(torch.equal(pa[k], pb[k])) for k in pa), "params differ")
+    emit(phase="async_oracle", jobs=len(la), aggregations=len(ha), t_virtual_s=na,
+         n_available=[h[4] for h in hb], equal=True)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row, shape):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
@@ -704,6 +1139,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.fleet_state import kernel as fleet_state_kernel
     from repro_torch.kernels.pairwise_rank import kernel as pairwise_rank_kernel
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
 
@@ -714,7 +1150,8 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY]
+    libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY,
+                 fleet_state_kernel.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
         built = list(pool.map(lambda lib: lib.build(), libraries))
@@ -730,11 +1167,18 @@ def main() -> int:
     timings = phase_timings(torch, card)
     pr_err_fwd, pr_err_bwd = phase_pairwise_vs_plain(torch)
     pr_timings = phase_pairwise_timings(torch, card)
+    t0 = time.perf_counter()
+    big = large_trace()
+    emit(phase="large_trace", devices=big.n_devices, segments=big.n_segments,
+         seconds=time.perf_counter() - t0)
+    fs_err = phase_fleet_state_vs_plain(torch, big)
+    fs_timings = phase_fleet_state_timings(torch, card, big)
 
     # ---- 4: the CPU and the card agree ----------------------------------
     phase_cpu_agreement(torch)
     phase_cpu_agreement_policies(torch, small_data(4000, 50))
     phase_cpu_agreement_il(torch)
+    phase_cpu_agreement_async(torch)
 
     # ---- 5-7: the paths, each with its own launch counts ---------------
     t0 = time.perf_counter()
@@ -746,10 +1190,15 @@ def main() -> int:
     il_counts, demos, q = phase_il_path(torch, data)
     phase_il_profile(torch, demos, q)
     phase_baselines(torch, data)
+    trace_counts = phase_trace_path(torch, data)
+    async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
+    phase_async_profile(torch, async_srv, async_policy)
+    phase_async_oracle(torch, data)
 
-    # ---- 8: kernels line, card line, result ----------------------------
+    # ---- 10: kernels line, card line, result ---------------------------
     main_shape = timings["main_probe_set"]
     il = pr_timings["il_b16_n30"]
+    fs_main = fs_timings["main_week"]
     print(json.dumps({"kernels": [
         kernel_entry("select_topk", "src/repro_torch/csrc/select_topk.cu",
                      "src/repro/kernels/select_topk/kernel.py:98",
@@ -763,6 +1212,14 @@ def main() -> int:
                      "src/repro/kernels/pairwise_rank/kernel.py:61",
                      il_counts["pairwise_rank_bwd"], pr_err_bwd, il["bwd"],
                      {"b": 16, "n": 30, "hard": True}),
+        dict(kernel_entry("fleet_state", "src/repro_torch/csrc/fleet_state.cu",
+                          "src/repro/kernels/fleet_state/kernel.py:52",
+                          sum(r["launches"]["fleet_state"] for key, r in async_runs.items()
+                              if "trace" in key),
+                          fs_err, fs_main, {"n": 1000, "s": fs_main["s"]}),
+             launches_by_path={"trace_sync": trace_counts["fleet_state"],
+                               **{f"async:{k}": r["launches"]["fleet_state"]
+                                  for k, r in async_runs.items()}}),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

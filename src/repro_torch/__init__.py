@@ -6,8 +6,9 @@ each counterpart is easy to find:
 
     data        synthetic datasets + Dirichlet federated partitioning (numpy)
     models      the layers the FL tasks use (``dense_init``, ``softmax_xent``)
-    fl          device simulator, scenarios, client training, the synchronous
-                server, aggregation and the policy registry
+    fl          device simulator, scenarios and trace replay, client
+                training, the synchronous server and the asynchronous
+                engine, aggregation and the policy registry
     core        features, the ranking Q-net, pairwise losses, double-Q
                 learning, imitation-learning pretraining against the
                 analytical experts, FedRank and the paper's baselines

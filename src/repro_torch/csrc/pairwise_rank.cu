@@ -33,6 +33,13 @@
 //            weighted accumulate (2) and the count (1);
 //   gradient 10 ops (hard), 12 (soft): two differences, the target, pm,
 //            the sigmoid (3), the subtraction and the accumulate (2).
+// The bound counts them at the fp32 rate, the type of the function's
+// inputs and outputs, although the gradient kernel evaluates them in fp64
+// (half that rate on the H100 SXM): a row whose pair terms nearly
+// cancel needs each term far more exact than fp32's 6e-8 to keep its small
+// gradient within 1e-5 of its largest.  With fp32 terms 26 of 350,000
+// random soft-target cohorts of 8 missed that against an fp64 evaluation
+// (scripts/pairwise_rank_precision.py); with fp64 terms none did.
 // Bytes: 3 * 4 * B * N in, 4 * B out (+ 4 * B * N out for the gradient).
 // At N = 30 the work is ~1e4 operations: launch latency is all there is.
 // At N = 65,536 it is 6e10 operations against 0.8 MB of input, far above
@@ -46,14 +53,18 @@
 // Design.  The TPU's carried accumulator does not exist on a GPU, where
 // CTAs run concurrently.  Grid (ceil(N / 128), B): each CTA owns 128 rows i
 // (one thread per row) and loops over every 128-wide column tile j staged
-// in shared memory.  A thread sums a tile in fp32 and adds the tile's sum
-// to an fp64 row accumulator, so a row of 65,536 pairs keeps ~1e-7 of
-// relative error.  Forward: the CTA reduces its rows' (sum, count) in fp64
-// by a fixed tree and writes one partial per CTA; a second launch reduces
-// each batch row's partials in a fixed order (fp64: the count of 65,536^2
-// pairs is past fp32's exact integers) and writes loss (B,) fp32 and count
-// (B,) fp64.  Gradient: the same grid, one writer per i, scaled by the
-// saved count.  No atomics: the results are deterministic.
+// in shared memory.  Forward: a thread sums a tile in fp32 and adds the
+// tile's sum to an fp64 row accumulator, so a row of 65,536 pairs keeps
+// ~1e-7 of relative error (its terms are all >= 0: no cancellation).  The
+// gradient's terms and sums are fp64 throughout.  Forward: the CTA reduces
+// its rows' (sum, count) in fp64 by a fixed tree and writes one partial per
+// CTA; a second launch reduces each batch row's partials in a fixed order
+// (fp64: the count of 65,536^2 pairs is past fp32's exact integers) and
+// writes loss (B,) fp32 and count (B,) fp64.  Gradient: the same grid, one
+// writer per i, scaled by the saved count.  No atomics: the results are
+// deterministic.  Batches past grid.y's 65,535 are launched in chunks of
+// 65,535 rows by the same C call; each batch row's reduction does not
+// depend on the chunking.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +75,7 @@ namespace {
 
 constexpr int ROWS = 128;     // rows per CTA, one thread each; = column tile
 constexpr int FINAL = 256;    // threads of the per-batch-row final reduction
+constexpr int MAX_GRID_Y = 65535;
 
 __device__ __forceinline__ float stable_sigmoid(float x) {
   const float e = expf(-fabsf(x));
@@ -164,8 +176,15 @@ pairwise_rank_fwd_final(const double* __restrict__ part_sum,
   }
 }
 
+__device__ __forceinline__ double stable_sigmoid_d(double x) {
+  const double e = exp(-fabs(x));
+  return x >= 0.0 ? 1.0 / (1.0 + e) : e / (1.0 + e);
+}
+
 // The gradient: grad[b][i] = g[b] * 2 / max(count[b], 1)
-//                            * sum_j pm_ij (sigmoid(l_ij) - tgt_ij).
+//                            * sum_j pm_ij (sigmoid(l_ij) - tgt_ij),
+// every term and the sum in fp64 (the inputs are fp32, so l_ij and the
+// target difference are exact in fp64).
 template <bool HARD>
 __global__ void __launch_bounds__(ROWS)
 pairwise_rank_bwd_rows(const float* __restrict__ s, const float* __restrict__ t,
@@ -190,14 +209,15 @@ pairwise_rank_bwd_rows(const float* __restrict__ s, const float* __restrict__ t,
     __syncthreads();
     if (mi == 0.f) continue;
     const int cols = min(ROWS, n - j0);
-    float tile = 0.f;
     for (int c = 0; c < cols; ++c) {
       const float pm = (j0 + c == i) ? 0.f : mi * ms[c];
       if (pm == 0.f) continue;
-      const float tgt = pair_target<HARD>(ti - ts[c]);
-      tile = fmaf(pm, stable_sigmoid(si - ss[c]) - tgt, tile);
+      const double d = static_cast<double>(ti) - static_cast<double>(ts[c]);
+      const double tgt = HARD ? (d > 0.0 ? 1.0 : (d < 0.0 ? 0.0 : 0.5))
+                              : stable_sigmoid_d(d);
+      const double l = static_cast<double>(si) - static_cast<double>(ss[c]);
+      acc = fma(static_cast<double>(pm), stable_sigmoid_d(l) - tgt, acc);
     }
-    acc += tile;
   }
   if (row_ok) {
     const double c = count[blockIdx.y];
@@ -207,7 +227,7 @@ pairwise_rank_bwd_rows(const float* __restrict__ s, const float* __restrict__ t,
 }
 
 bool shape_ok(int b, int n) {
-  return b >= 1 && b <= 65535 && n >= 1 && n <= INT_MAX - ROWS;
+  return b >= 1 && n >= 1 && n <= INT_MAX - ROWS;
 }
 
 }  // namespace
@@ -227,19 +247,24 @@ int pairwise_rank_fwd_launch(const void* scores, const void* targets,
   const int n_blocks = (n + ROWS - 1) / ROWS;
   double* part_sum = static_cast<double*>(scratch);
   double* part_cnt = part_sum + static_cast<size_t>(b) * n_blocks;
-  const dim3 grid(n_blocks, b);
-  const float* s = static_cast<const float*>(scores);
-  const float* t = static_cast<const float*>(targets);
-  const float* m = static_cast<const float*>(mask);
-  if (hard) {
-    pairwise_rank_fwd_rows<true><<<grid, ROWS, 0, st>>>(s, t, m, n, part_sum,
-                                                         part_cnt);
-  } else {
-    pairwise_rank_fwd_rows<false><<<grid, ROWS, 0, st>>>(s, t, m, n, part_sum,
-                                                          part_cnt);
+  for (int b0 = 0; b0 < b; b0 += MAX_GRID_Y) {      // grid.y chunks of rows
+    const int rows = b - b0 < MAX_GRID_Y ? b - b0 : MAX_GRID_Y;
+    const size_t off = static_cast<size_t>(b0) * n;
+    const size_t poff = static_cast<size_t>(b0) * n_blocks;
+    const dim3 grid(n_blocks, rows);
+    const float* s = static_cast<const float*>(scores) + off;
+    const float* t = static_cast<const float*>(targets) + off;
+    const float* m = static_cast<const float*>(mask) + off;
+    if (hard) {
+      pairwise_rank_fwd_rows<true><<<grid, ROWS, 0, st>>>(
+          s, t, m, n, part_sum + poff, part_cnt + poff);
+    } else {
+      pairwise_rank_fwd_rows<false><<<grid, ROWS, 0, st>>>(
+          s, t, m, n, part_sum + poff, part_cnt + poff);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   pairwise_rank_fwd_final<<<b, FINAL, 0, st>>>(
       part_sum, part_cnt, n_blocks, static_cast<float*>(loss),
       static_cast<double*>(count));
@@ -255,19 +280,25 @@ int pairwise_rank_bwd_launch(const void* scores, const void* targets,
                              void* grad, void* stream) {
   if (!shape_ok(b, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + ROWS - 1) / ROWS, b);
-  const float* s = static_cast<const float*>(scores);
-  const float* t = static_cast<const float*>(targets);
-  const float* m = static_cast<const float*>(mask);
-  const double* c = static_cast<const double*>(count);
-  const float* g = static_cast<const float*>(grad_loss);
-  float* out = static_cast<float*>(grad);
-  if (hard) {
-    pairwise_rank_bwd_rows<true><<<grid, ROWS, 0, st>>>(s, t, m, c, g, n, out);
-  } else {
-    pairwise_rank_bwd_rows<false><<<grid, ROWS, 0, st>>>(s, t, m, c, g, n, out);
+  for (int b0 = 0; b0 < b; b0 += MAX_GRID_Y) {      // grid.y chunks of rows
+    const int rows = b - b0 < MAX_GRID_Y ? b - b0 : MAX_GRID_Y;
+    const size_t off = static_cast<size_t>(b0) * n;
+    const dim3 grid((n + ROWS - 1) / ROWS, rows);
+    const float* s = static_cast<const float*>(scores) + off;
+    const float* t = static_cast<const float*>(targets) + off;
+    const float* m = static_cast<const float*>(mask) + off;
+    const double* c = static_cast<const double*>(count) + b0;
+    const float* g = static_cast<const float*>(grad_loss) + b0;
+    float* out = static_cast<float*>(grad) + off;
+    if (hard) {
+      pairwise_rank_bwd_rows<true><<<grid, ROWS, 0, st>>>(s, t, m, c, g, n, out);
+    } else {
+      pairwise_rank_bwd_rows<false><<<grid, ROWS, 0, st>>>(s, t, m, c, g, n, out);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // extern "C"

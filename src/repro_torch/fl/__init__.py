@@ -1,10 +1,19 @@
 from repro_torch.fl.simulation import DevicePool, RoundSystemState
 from repro_torch.fl.tasks import MLPTask
 from repro_torch.fl.client import local_train, probing_epoch
-from repro_torch.fl.aggregation import AGGREGATORS, fedavg, robust_aggregate
+from repro_torch.fl.aggregation import (
+    AGGREGATORS,
+    STALENESS_KINDS,
+    buffered_aggregate,
+    fedavg,
+    robust_aggregate,
+    staleness_weight,
+)
 from repro_torch.fl.server import FLConfig, FLServer, RoundContext, RoundResult
 from repro_torch.fl.telemetry import TELEMETRY_FEATURES, DeviceTelemetry
+from repro_torch.fl.async_engine import AsyncJob, AsyncRoundEngine, AsyncStallError
 from repro_torch.fl.engine import (
+    AsyncDispatchExecutor,
     ClientExecutor,
     ClientRequest,
     ExecutionResult,
@@ -13,6 +22,7 @@ from repro_torch.fl.engine import (
     available_executors,
     build_requests,
     build_round_plan,
+    executor_label,
     make_executor,
 )
 from repro_torch.fl.registry import available_policies, build_policy
@@ -23,17 +33,36 @@ from repro_torch.fl.scenarios import (
     get_scenario,
     register_scenario,
 )
+from repro_torch.fl.traces import (
+    ResampledFleet,
+    SyntheticTraceSpec,
+    Trace,
+    TraceAvailability,
+    TraceLoad,
+    TraceSpec,
+    read_trace_csv,
+    sample_trace_path,
+    synthesize_trace,
+    write_trace_csv,
+)
 
 __all__ = [
     "DevicePool", "RoundSystemState",
     "ScenarioSpec", "build_scenario", "register_scenario", "get_scenario",
     "available_scenarios",
     "MLPTask", "local_train", "probing_epoch",
+    "Trace", "ResampledFleet", "TraceSpec", "TraceLoad", "TraceAvailability",
+    "SyntheticTraceSpec", "synthesize_trace",
+    "read_trace_csv", "write_trace_csv", "sample_trace_path",
     "fedavg", "AGGREGATORS", "robust_aggregate",
+    "STALENESS_KINDS", "staleness_weight",
+    "buffered_aggregate",
     "FLServer", "FLConfig", "RoundContext", "RoundResult",
     "DeviceTelemetry", "TELEMETRY_FEATURES",
+    "AsyncRoundEngine", "AsyncJob", "AsyncStallError",
     "RoundPlan", "build_round_plan", "build_requests",
     "ClientExecutor", "ClientRequest", "ExecutionResult",
-    "SequentialExecutor", "make_executor", "available_executors",
+    "SequentialExecutor", "AsyncDispatchExecutor", "executor_label",
+    "make_executor", "available_executors",
     "build_policy", "available_policies",
 ]

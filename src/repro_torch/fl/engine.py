@@ -8,8 +8,13 @@
 * :class:`SequentialExecutor` — the reference semantics: one
   :func:`repro_torch.fl.client.local_train` call per client, in order.
 
+* :class:`AsyncDispatchExecutor` — the ``"async"`` registry alias: it
+  selects the asynchronous engine and delegates each wave's client work to
+  its ``inner`` executor.
+
 Executors are looked up by name (``FLConfig.executor``).  This package has
-``"sequential"`` only; the cohort-batched executor comes in a later slice.
+``"sequential"`` and ``"async"``; the cohort-batched ``"vmapped"`` executor
+comes in a later slice.
 """
 from __future__ import annotations
 
@@ -122,8 +127,47 @@ class SequentialExecutor:
         return out
 
 
+def executor_label(ex) -> str:
+    """The executor doing the work, wrappers unwrapped: its registry ``name``
+    with any ``inner`` delegate in brackets, e.g. ``"async[sequential]"``
+    (what :class:`~repro_torch.fl.server.RoundResult` records)."""
+    name = getattr(ex, "name", type(ex).__name__)
+    inner = getattr(ex, "inner", None)
+    if inner is not None:
+        return f"{name}[{executor_label(inner)}]"
+    return name
+
+
+class AsyncDispatchExecutor:
+    """Registry alias selecting the asynchronous engine.
+
+    ``FLConfig(executor="async")`` is shorthand for ``FLConfig(mode="async")``:
+    the server spots this executor's name and drives rounds through
+    :class:`repro_torch.fl.async_engine.AsyncRoundEngine`.  Each dispatch
+    wave's client work goes to ``inner`` (default and only choice here:
+    :class:`SequentialExecutor`).
+    """
+
+    name = "async"
+
+    def __init__(self, inner=None, **kw):
+        if isinstance(inner, str) and inner != "sequential":
+            raise NotImplementedError(
+                f"AsyncDispatchExecutor(inner={inner!r}) is not ported yet: "
+                "the vmapped executor comes in a later slice of the port; "
+                "this package has inner='sequential'")
+        self.inner = (make_executor("sequential", **kw)
+                      if inner is None or isinstance(inner, str) else inner)
+
+    def run(self, task, global_params, requests, *, lr, batch_size, prox_mu
+            ) -> ExecutionResult:
+        return self.inner.run(task, global_params, requests, lr=lr,
+                              batch_size=batch_size, prox_mu=prox_mu)
+
+
 _EXECUTORS: Dict[str, Callable[..., ClientExecutor]] = {
     "sequential": SequentialExecutor,
+    "async": AsyncDispatchExecutor,
 }
 
 

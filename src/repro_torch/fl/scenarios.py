@@ -7,16 +7,31 @@ availability model (:class:`AlwaysAvailable`, :class:`ChurnAvailability`,
 stragglers).  Every model draws from the pool's RNG in the reference's order,
 so a scenario replays the reference's fleet exactly.
 
-This package registers the scenarios without traces, regions or attacks:
+A scenario may instead carry a :class:`~repro_torch.fl.traces.TraceSpec`
+(``ScenarioSpec.trace``): a replayed device trace supplies load and
+availability from one timeline, and its segment lookups run on the device
+the fleet is built for (``build(..., device=)``; the ``fleet_state`` kernel
+on the card).
+
+Availability models tell the asynchronous engine when their mask can next
+change (``next_transition``) and whether rounds can be skipped without
+stepping (``stateless_replay``), as in the reference.
+
+This package registers the scenarios without regions or attacks:
 ``uniform``, ``cellular-tail``, ``nightly-chargers``, ``flash-crowd``,
-``high-churn`` and ``stragglers``.  Any other name raises ``KeyError``.
+``high-churn``, ``trace-livelab``, ``trace-synthetic-week`` and
+``stragglers``.  Any other name raises ``KeyError``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch import DeviceLike
+from repro_torch.fl.traces import SyntheticTraceSpec, TraceSpec, sample_trace_path
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +137,9 @@ class FlashCrowdLoad:
 class AlwaysAvailable:
     """Every device is online every round."""
 
+    # pure function of round_idx: DevicePool.advance_to may jump rounds
+    stateless_replay = True
+
     def init_state(self, n: int, rng: np.random.Generator):
         return np.ones(n, bool)
 
@@ -130,6 +148,9 @@ class AlwaysAvailable:
 
     def mask(self, state, round_idx: int) -> np.ndarray:
         return state
+
+    def next_transition(self, state, round_idx: int) -> Optional[int]:
+        return None                      # the mask never changes
 
 
 @dataclass(frozen=True)
@@ -151,6 +172,10 @@ class ChurnAvailability:
     def mask(self, state, round_idx: int) -> np.ndarray:
         return state
 
+    def next_transition(self, state, round_idx: int) -> Optional[int]:
+        # stochastic churn: the mask may flip on every step
+        return round_idx + 1
+
 
 @dataclass(frozen=True)
 class DiurnalAvailability:
@@ -161,6 +186,9 @@ class DiurnalAvailability:
     duty: float = 0.4
     phase_spread: float = 0.15   # most users charge at a similar local hour
 
+    # step() keeps state verbatim and draws no RNG: replay can jump rounds
+    stateless_replay = True
+
     def init_state(self, n: int, rng: np.random.Generator):
         return rng.normal(0.0, self.phase_spread, size=n) % 1.0
 
@@ -170,6 +198,16 @@ class DiurnalAvailability:
     def mask(self, state, round_idx: int) -> np.ndarray:
         t = (round_idx / self.period + state) % 1.0
         return t < self.duty
+
+    def next_transition(self, state, round_idx: int) -> Optional[int]:
+        """Exact next round at which any device enters or leaves its
+        charging window (the mask is ``period``-periodic, so a full period
+        with no change means it never changes)."""
+        cur = self.mask(state, round_idx)
+        for r in range(round_idx + 1, round_idx + self.period + 1):
+            if not np.array_equal(self.mask(state, r), cur):
+                return r
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -245,13 +283,23 @@ class ScenarioSpec:
     load: Any = field(default_factory=MarkovLoad)
     availability: Any = field(default_factory=AlwaysAvailable)
     failures: FailureModel = field(default_factory=FailureModel)
+    trace: Optional[TraceSpec] = None     # replaces load+availability with a
+    #                                       coherent replayed device trace
 
-    def build(self, n_devices: int, seed: int = 0):
+    def build(self, n_devices: int, seed: int = 0, device: DeviceLike = None):
+        """The runtime fleet.  ``device`` is where a trace's segment lookups
+        run (the card unless ``"cpu"``); scenarios without a trace ignore
+        it."""
         from repro_torch.fl.simulation import DevicePool
 
+        load, availability = self.load, self.availability
+        if self.trace is not None:
+            # one resolve => load and availability replay the SAME
+            # bootstrapped fleet (deterministic in (spec, n_devices, seed))
+            load, availability = self.trace.resolve(n_devices, seed=seed,
+                                                    device=device)
         return DevicePool(n_devices, seed=seed, tier_probs=list(self.tier_probs),
-                          load_model=self.load,
-                          availability=self.availability,
+                          load_model=load, availability=availability,
                           failures=self.failures)
 
 
@@ -274,9 +322,14 @@ def get_scenario(name: str) -> ScenarioSpec:
                        f"registered: {available_scenarios()}") from None
 
 
-def build_scenario(name: str, n_devices: int, seed: int = 0):
-    """Build the named scenario's fleet."""
-    return get_scenario(name).build(n_devices, seed=seed)
+def build_scenario(name: str, n_devices: int, seed: int = 0,
+                   device: DeviceLike = None, **overrides):
+    """Build the named scenario's fleet (trace lookups on ``device``);
+    ``overrides`` replace spec fields (e.g. ``trace=TraceSpec(csv=...)``)."""
+    spec = get_scenario(name)
+    if overrides:
+        spec = dataclasses.replace(spec, **overrides)
+    return spec.build(n_devices, seed=seed, device=device)
 
 
 def available_scenarios() -> List[str]:
@@ -327,6 +380,27 @@ register_scenario(ScenarioSpec(
                 "against who will still be there at upload time.",
     availability=ChurnAvailability(p_drop=0.2, p_join=0.4),
     failures=FailureModel(dropout=0.1),
+))
+
+register_scenario(ScenarioSpec(
+    name="trace-livelab",
+    description="Replays the shipped LiveLab-format sample trace (8 source "
+                "devices over 3 days, bootstrapped to the fleet size): "
+                "coherent per-device usage/charging/offline timelines with "
+                "mild mid-round dropout.  Swap in your own trace via "
+                "FLConfig.trace_csv.",
+    trace=TraceSpec(csv=sample_trace_path()),
+    failures=FailureModel(dropout=0.05),
+))
+
+register_scenario(ScenarioSpec(
+    name="trace-synthetic-week",
+    description="A synthetic week of realistic device behavior (nightly "
+                "charging, daytime sessions, weekend shift, offline spells) "
+                "from the deterministic generator — the trace analogue of "
+                "nightly-chargers, reproducible with no data files.",
+    trace=TraceSpec(synthetic=SyntheticTraceSpec(n_devices=32, days=7,
+                                                 seed=11)),
 ))
 
 register_scenario(ScenarioSpec(

@@ -17,12 +17,21 @@ Model weights, client data and every training step live on the server's
 scenario RNG streams and the virtual clock stay numpy on the host, so
 cohorts, failures and the clock follow the reference exactly.
 
-Not in this package yet, and refused with ``NotImplementedError``: the
-asynchronous regime (``mode="async"``), hierarchical topologies and regions,
-attacks, run observability, trace replay and robust aggregators.
+Rounds come in two regimes (``FLConfig.mode``): ``"sync"`` runs the barrier
+loop above, ``"async"`` (or ``executor="async"``) hands the run to
+:class:`repro_torch.fl.async_engine.AsyncRoundEngine` through
+:meth:`FLServer.run_async`, and history records one entry per *aggregation*
+with the absolute virtual clock as ``cum_time``.  A trace scenario (or
+``FLConfig.trace_csv``) replays device timelines whose segment lookups run
+on the server's device.
+
+Not in this package yet, and refused with ``NotImplementedError``:
+hierarchical topologies and regions, attacks, run observability and robust
+aggregators.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Protocol, Sequence
@@ -40,9 +49,11 @@ from repro_torch.fl.engine import (
     ClientRequest,
     build_requests,
     build_round_plan,
+    executor_label,
     make_executor,
 )
-from repro_torch.fl.scenarios import build_scenario
+from repro_torch.fl.scenarios import build_scenario, get_scenario
+from repro_torch.fl.traces import TraceSpec
 from repro_torch.fl.simulation import (
     RoundSystemState,
     plan_round_energy,
@@ -76,9 +87,28 @@ class FLConfig:
     feature_set: str = "paper6"   # probe-state feature set on RoundContext
     #                               (repro_torch.core.features)
     aggregator: str = "mean"      # merge rule; "mean" is fedavg
+    trace_csv: Optional[str] = None   # LiveLab-format trace CSV replayed as
+    #                               the scenario's load+availability (swaps
+    #                               the named scenario's TraceSpec source)
+    mode: str = "sync"            # round regime: "sync" barrier loop or
+    #                               "async" buffered aggregation
+    #                               (repro_torch.fl.async_engine)
+    buffer_size: int = 0          # async: aggregate every B arrivals
+    #                               (0 => k_select)
+    async_concurrency: int = 0    # async: max outstanding updates, in flight
+    #                               + completed-but-unmerged (0 =>
+    #                               buffer_size; must be >= buffer_size)
+    staleness: str = "constant"   # async update weighting vs model-version
+    #                               lag: constant | polynomial | hinge
+    staleness_a: float = 0.5      # polynomial exponent / hinge decay slope
+    staleness_b: int = 4          # hinge: lag tolerated before decay
+    async_tick_s: float = 0.0     # seconds of virtual clock per scenario
+    #                               round (0 => median static round latency)
+    async_events: str = "batched"  # event-loop stepping: "batched" (whole
+    #                               event windows per step) | "sequential"
+    #                               (one event instant per step — the
+    #                               parity oracle)
     # --- refused until their slice is ported (NotImplementedError) ---
-    mode: str = "sync"            # "async": the asynchronous slice
-    trace_csv: Optional[str] = None   # trace replay: the async/trace slice
     topology: Any = None          # hierarchical aggregation: hierarchy slice
     regions: int = 0              # region split: hierarchy slice
     attack: Any = None            # adversarial clients: robustness slice
@@ -87,9 +117,9 @@ class FLConfig:
 
 
 def _refuse_unported(cfg: FLConfig) -> None:
+    if cfg.mode not in ("sync", "async"):
+        raise ValueError(f"unknown mode {cfg.mode!r}; expected 'sync' or 'async'")
     later = [
-        (cfg.mode != "sync", f"mode={cfg.mode!r}", "the async/trace slice"),
-        (cfg.trace_csv is not None, "trace_csv", "the async/trace slice"),
         (cfg.topology is not None, "topology", "the hierarchy slice"),
         (bool(cfg.regions), "regions", "the hierarchy slice"),
         (cfg.attack is not None, "attack", "the robustness slice"),
@@ -136,6 +166,16 @@ class RoundContext:
         devices; columns [0:6] are the paper's 6-dim state."""
         return self.feature_set.raw_states(self, ids, probe_losses)
 
+    def expected_staleness(self, ids: np.ndarray) -> np.ndarray:
+        """Predicted model-version lag of an update dispatched now from each
+        device in ``ids``: telemetry-estimated completion time (the static
+        estimate before any observation) over the observed aggregation
+        cadence.  Zeros without telemetry (hand-built contexts)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        if self.telemetry is None:
+            return np.zeros(len(ids))
+        return self.telemetry.expected_staleness(ids, self.est_t_round[ids])
+
 
 class SelectionPolicy(Protocol):
     name: str
@@ -170,9 +210,17 @@ class RoundResult:
     stragglers: np.ndarray = field(default_factory=_empty_ids)
     #                             selected devices that missed the deadline
     n_available: int = -1         # fleet devices online this round
-    host_time_s: float = 0.0      # host wall-clock seconds for the round,
-    #                             device work included (ends in a host sync)
-    executor: str = ""            # executor that ran the client work
+    # --- async-mode fields (one record per *aggregation*; the defaults keep
+    #     synchronous records unchanged) ---
+    mean_staleness: float = 0.0   # mean model-version lag of merged updates
+    max_staleness: int = 0        # worst lag in the merged buffer
+    n_pending: int = 0            # jobs still in flight at aggregation time
+    host_time_s: float = 0.0      # host wall-clock seconds for the record
+    #                             (sync: the round; async: since the previous
+    #                             aggregation), device work included (ends in
+    #                             a host sync)
+    executor: str = ""            # executor that ran the client work, wrappers
+    #                             unwrapped (e.g. "async[sequential]")
 
 
 def paper_reward(d_acc: float, r_t: float, r_e: float, t_budget: float,
@@ -202,7 +250,18 @@ class FLServer:
         self.task = task
         self.data = data
         self.executor = executor or make_executor(cfg.executor)
-        self.pool = build_scenario(cfg.scenario, cfg.n_devices, seed=cfg.seed)
+        scenario_kw = {}
+        if cfg.trace_csv is not None:
+            # replay the user's trace under the named scenario's tier mix and
+            # failure model; a trace scenario keeps its replay knobs and
+            # swaps the SOURCE only
+            prior = get_scenario(cfg.scenario).trace
+            scenario_kw["trace"] = (
+                dataclasses.replace(prior, csv=cfg.trace_csv, synthetic=None)
+                if prior is not None else TraceSpec(csv=cfg.trace_csv))
+        # trace lookups run where the model does
+        self.pool = build_scenario(cfg.scenario, cfg.n_devices, seed=cfg.seed,
+                                   device=self.device, **scenario_kw)
         self.rng = np.random.default_rng(cfg.seed + 17)
         self.feature_set = get_feature_set(cfg.feature_set)  # validates early
         self.telemetry = DeviceTelemetry(cfg.n_devices)
@@ -228,8 +287,7 @@ class FLServer:
         est_t, est_e = self._static_round_estimates()
         self.t_budget = cfg.t_budget or float(np.median(est_t))
         self.e_budget = cfg.e_budget or float(np.median(est_e)) * cfg.k_select
-        self._executor_label = getattr(self.executor, "name",
-                                       type(self.executor).__name__)
+        self._executor_label = executor_label(self.executor)
 
     # ------------------------------------------------------------------
     @property
@@ -265,14 +323,22 @@ class FLServer:
         return (sum(a * s for a, s in zip(accs, sizes)) / n,
                 sum(l * s for l, s in zip(losses, sizes)) / n)
 
-    def _ctx(self) -> RoundContext:
+    def _ctx(self, k: Optional[int] = None,
+             available: Optional[np.ndarray] = None,
+             round_idx: Optional[int] = None) -> RoundContext:
+        """Policy-facing round context.  The async engine overrides ``k``
+        (wave size), ``available`` (online AND idle) and ``round_idx`` (its
+        dispatch-wave counter); the sync path uses the defaults."""
         sys = self.pool.system_state(self._flops_per_epoch(), self.task.param_bytes())
         est_t, est_e = self._static_round_estimates()
         return RoundContext(
-            round=len(self.history), n=self.cfg.n_devices, k=self.cfg.k_select,
+            round=len(self.history) if round_idx is None else round_idx,
+            n=self.cfg.n_devices, k=k or self.cfg.k_select,
             sys=sys, est_t_round=est_t, est_e_round=est_e,
             data_sizes=self.data_sizes, last_loss=self.last_loss.copy(),
-            loss_age=self.loss_age.copy(), available=self.pool.available(),
+            loss_age=self.loss_age.copy(),
+            available=(self.pool.available() if available is None
+                       else available),
             selection_count=self.selection_count.copy(),
             telemetry=self.telemetry, feature_set=self.feature_set,
             rng=self.rng)
@@ -413,8 +479,30 @@ class FLServer:
         result.host_time_s = time.perf_counter() - t_host0
         return result
 
+    def run_async(self, policy: SelectionPolicy,
+                  aggregations: Optional[int] = None,
+                  verbose: bool = False) -> List[RoundResult]:
+        """Asynchronous regime: the event loop over the scenario's
+        availability windows with buffered, staleness-weighted aggregation
+        (:mod:`repro_torch.fl.async_engine`).  Runs until ``aggregations``
+        (default ``cfg.rounds``) buffer merges; each appends one
+        :class:`RoundResult` whose ``cum_time`` is the absolute virtual
+        clock."""
+        from repro_torch.fl.async_engine import AsyncRoundEngine
+
+        AsyncRoundEngine(self, policy).run(aggregations or self.cfg.rounds,
+                                           verbose=verbose)
+        return self.history
+
+    @property
+    def is_async(self) -> bool:
+        """``mode="async"`` — or the ``"async"`` executor-registry alias."""
+        return self.cfg.mode == "async" or self.cfg.executor == "async"
+
     def run(self, policy: SelectionPolicy, rounds: Optional[int] = None,
             verbose: bool = False) -> List[RoundResult]:
+        if self.is_async:
+            return self.run_async(policy, aggregations=rounds, verbose=verbose)
         for _ in range(rounds or self.cfg.rounds):
             res = self.run_round(policy)
             if verbose:

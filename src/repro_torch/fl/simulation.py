@@ -2,7 +2,8 @@
 
 Devices are drawn from tiers (flagship / mid / low-end) with per-device
 compute throughput, bandwidth and energy coefficients; per-round dynamics
-(load, availability, failures) come from :mod:`repro_torch.fl.scenarios`.
+(load, availability, failures) come from :mod:`repro_torch.fl.scenarios`;
+a trace scenario's models carry the device their lookups run on.
 The fleet is stored struct-of-arrays and every draw follows the reference's
 RNG order, so availability masks, failure draws, latency and energy equal the
 reference's for the same ``(scenario, n_devices, seed)``.
@@ -94,6 +95,29 @@ class DevicePool:
                                                 self.round_idx)
         self._avail_state = self.availability.step(self._avail_state, self.rng,
                                                    self.round_idx)
+
+    def advance_to(self, round_idx: int) -> None:
+        """Fast-forward the dynamics to ``round_idx``.  Stochastic models
+        replay every intermediate step, keeping their per-round RNG draws;
+        when load and availability both declare ``stateless_replay`` (trace
+        replay, the deterministic diurnal/always patterns) the jump is one
+        assignment.  The async engine calls this at availability
+        transitions (:meth:`next_transition`)."""
+        if (getattr(self.load_model, "stateless_replay", False)
+                and getattr(self.availability, "stateless_replay", False)):
+            self.round_idx = max(self.round_idx, round_idx)
+            return
+        while self.round_idx < round_idx:
+            self.advance_round()
+
+    def next_transition(self) -> Optional[int]:
+        """Next round index at which the availability mask may change
+        (``None`` = never).  Models without ``next_transition`` are taken
+        to be able to flip every round."""
+        fn = getattr(self.availability, "next_transition", None)
+        if fn is None:
+            return self.round_idx + 1
+        return fn(self._avail_state, self.round_idx)
 
     def loads(self) -> np.ndarray:
         return self.load_model.loads(self._load_state, self.round_idx)

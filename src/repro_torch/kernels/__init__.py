@@ -6,6 +6,9 @@
     pairwise_rank  masked pairwise RankNet loss, forward and score gradient
                    (CUDA C++, csrc/pairwise_rank.cu); ops.pairwise_rank is
                    the imitation-learning objective
+    fleet_state    trace segment lookup, the state of every fleet device at
+                   its time (CUDA C++, csrc/fleet_state.cu); ops.segment_index
+                   is every trace scenario's mask and load query
 
 ``_build`` compiles each source with ``nvcc`` at first use and binds it with
 ``ctypes``.

@@ -27,7 +27,6 @@ from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.pairwise_rank.ref import pairwise_rank_ref, pairwise_rank_sums
 
 ROWS = 128            # rows per CTA (pairwise_rank.cu ROWS)
-MAX_B = 65535         # grid.y
 MAX_N = 2**31 - 1 - ROWS
 
 
@@ -69,8 +68,8 @@ def _check_inputs(scores, targets, mask) -> Tuple[int, int]:
     if scores.dim() != 2:
         raise ValueError(f"scores must be (B, N), got shape {tuple(scores.shape)}")
     b, n = scores.shape
-    if not (1 <= b <= MAX_B and 1 <= n <= MAX_N):
-        raise ValueError(f"pairwise_rank kernels take 1 <= B <= {MAX_B} and "
+    if not (b >= 1 and 1 <= n <= MAX_N):
+        raise ValueError(f"pairwise_rank kernels take B >= 1 and "
                          f"1 <= N <= {MAX_N}, got B={b}, N={n}")
     for name, t in (("scores", scores), ("targets", targets), ("mask", mask)):
         _check(name, t, (b, n), torch.float32, scores.device)

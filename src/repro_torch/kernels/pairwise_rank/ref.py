@@ -11,7 +11,9 @@ batch row:
 with ``pm_ij = m_i m_j`` and the diagonal knocked out.  This is the
 semantics the CUDA kernels (:mod:`repro_torch.kernels.pairwise_rank.kernel`)
 are held to; its autograd gradient is what the gradient kernel is held to.
-It materialises (B, N, N) matrices.
+It materialises (B, N, N) matrices.  It computes in float32, or in float64
+when the scores are float64 (the exact reference a card check can compare
+an fp32 kernel with).
 """
 from __future__ import annotations
 
@@ -32,10 +34,11 @@ def pairwise_rank_sums(scores: torch.Tensor, targets: torch.Tensor,
                        mask: torch.Tensor, hard: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """scores, targets, mask (B, N) -> (sum of pm * BCE (B,), count (B,))."""
-    s, t, m = scores.float(), targets.float(), mask.float()
+    dt = torch.float64 if scores.dtype == torch.float64 else torch.float32
+    s, t, m = scores.to(dt), targets.to(dt), mask.to(dt)
     logits = s[..., :, None] - s[..., None, :]
     tgt = pair_targets(t, hard)
-    eye = torch.eye(s.shape[-1], dtype=torch.float32, device=s.device)
+    eye = torch.eye(s.shape[-1], dtype=dt, device=s.device)
     pm = m[..., :, None] * m[..., None, :] * (1.0 - eye)
     bce = (torch.clamp(logits, min=0.0) - logits * tgt
            + torch.log1p(torch.exp(-logits.abs())))
@@ -44,6 +47,7 @@ def pairwise_rank_sums(scores: torch.Tensor, targets: torch.Tensor,
 
 def pairwise_rank_ref(scores: torch.Tensor, targets: torch.Tensor,
                       mask: torch.Tensor, hard: bool = False) -> torch.Tensor:
-    """scores, targets, mask (B, N) -> mean pair BCE per row (B,), fp32."""
+    """scores, targets, mask (B, N) -> mean pair BCE per row (B,), fp32
+    (fp64 for fp64 scores)."""
     total, count = pairwise_rank_sums(scores, targets, mask, hard)
     return total / torch.clamp(count, min=1.0)

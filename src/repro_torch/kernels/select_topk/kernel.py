@@ -5,8 +5,11 @@ Replaces the TPU kernel ``src/repro/kernels/select_topk/kernel.py``
 its header comment gives the bound on the card (fp32 FMAs: 2·N·(F·H + H² + H)
 FLOPs against (F + 2)·4·N bytes) and the two-pass design: one CTA per
 256-row tile scores its rows and bitonic-sorts them in shared memory, then a
-fixed-order tree of pairwise merges keeps the best K_pad.  The result is
-exact and deterministic.
+fixed-order tree of pairwise merges keeps the best K_pad.  Any feature width
+F, hidden width H and k <= N: up to H = 128 (and weights that fit in shared
+memory) the weights sit in shared memory, wider nets read them through the
+read-only cache with the first layer's activations in a scratch, in the
+same FMA order.  The result is exact and deterministic.
 
 ``LIBRARY`` (:class:`~repro_torch.kernels._build.CudaLibrary`) compiles the
 source with ``nvcc`` at first use into ``build/kernels/`` at the repository
@@ -30,16 +33,17 @@ from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.select_topk.ref import select_topk_ref
 
 TILE = 256            # candidates per CTA in pass 1 (select_topk.cu TILE)
-MAX_F = 64
-MAX_H = 128
-MAX_K = 1024          # k is padded to K_pad = ceil(k / 8) * 8 <= 1024
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.select_topk_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
+    lib.select_topk_list_entries.argtypes = [ctypes.c_int] * 2
+    lib.select_topk_list_entries.restype = ctypes.c_longlong
+    lib.select_topk_h1_floats.argtypes = [ctypes.c_int] * 3
+    lib.select_topk_h1_floats.restype = ctypes.c_longlong
 
 
 LIBRARY = CudaLibrary("select_topk", _bind)
@@ -66,7 +70,7 @@ def select_topk_cuda(params: Dict[str, torch.Tensor], feats: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """feats (N, F), mask (N,), bias (N,) float32 -> (values (k,) float32,
     indices (k,) int64), score descending, lowest-index ties, masked rows
-    last.  Requires 1 <= k <= N, F <= 64, H <= 128, k <= 1024.
+    last.  Requires 1 <= k <= N; any F and H.
 
     CUDA tensors launch the kernel (and count the launch); CPU tensors take
     the plain version; anything else raises.
@@ -80,12 +84,10 @@ def select_topk_cuda(params: Dict[str, torch.Tensor], feats: torch.Tensor,
         raise ValueError(f"feats must be (N, F), got shape {tuple(feats.shape)}")
     n, f = feats.shape
     h = int(params["w1"].shape[1]) if params["w1"].dim() == 2 else -1
-    if not (1 <= f <= MAX_F and 1 <= h <= MAX_H):
-        raise ValueError(f"select_topk kernel takes F <= {MAX_F} and "
-                         f"H <= {MAX_H}, got F={f}, H={h}")
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"select_topk kernel takes 1 <= k <= min(N, {MAX_K}), "
-                         f"got k={k}, N={n}")
+    if f < 1 or h < 1:
+        raise ValueError(f"select_topk kernel takes F, H >= 1, got F={f}, H={h}")
+    if not 1 <= k <= n:
+        raise ValueError(f"select_topk kernel takes 1 <= k <= N, got k={k}, N={n}")
     if n > 2**31 - 1 - TILE:
         raise ValueError(f"select_topk kernel takes N < 2**31 - {TILE}, got {n}")
     dev = feats.device
@@ -98,10 +100,11 @@ def select_topk_cuda(params: Dict[str, torch.Tensor], feats: torch.Tensor,
 
     lib = LIBRARY.load()
     k_pad = k_padded(k)
-    n_tiles = -(-n // TILE)
-    n_scratch = (n_tiles + -(-n_tiles // 2)) * k_pad
+    n_scratch = 2 * lib.select_topk_list_entries(n, k_pad)
     scratch_v = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     scratch_i = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    n_h1 = lib.select_topk_h1_floats(n, f, h)
+    h1 = torch.empty(n_h1, dtype=torch.float32, device=dev) if n_h1 else None
     out_v = torch.empty(k_pad, dtype=torch.float32, device=dev)
     out_i = torch.empty(k_pad, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -112,6 +115,7 @@ def select_topk_cuda(params: Dict[str, torch.Tensor], feats: torch.Tensor,
             params["w2"].data_ptr(), params["b2"].data_ptr(),
             params["w3"].data_ptr(), params["b3"].data_ptr(),
             n, f, h, k_pad, scratch_v.data_ptr(), scratch_i.data_ptr(),
+            h1.data_ptr() if h1 is not None else None,
             out_v.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"select_topk kernel launch failed: CUDA error {err}")

@@ -180,14 +180,13 @@ def test_scenario_streams_exactly_equal(scenario):
 def test_unported_scenarios_and_executors_raise():
     assert tscen.available_scenarios() == sorted([
         "uniform", "cellular-tail", "nightly-chargers", "flash-crowd",
-        "high-churn", "stragglers"])
-    for name in ("trace-livelab", "hierarchical", "byzantine-signflip"):
+        "high-churn", "stragglers", "trace-livelab", "trace-synthetic-week"])
+    for name in ("hierarchical", "regional-outage", "byzantine-signflip"):
         with pytest.raises(KeyError, match="registered"):
             tscen.build_scenario(name, 10)
-    assert available_executors() == ["sequential"]
-    for name in ("vmapped", "async"):
-        with pytest.raises(KeyError, match="sequential"):
-            make_executor(name)
+    assert available_executors() == ["async", "sequential"]
+    with pytest.raises(KeyError, match="sequential"):
+        make_executor("vmapped")
 
 
 # ---------------------------------------------------------------------------

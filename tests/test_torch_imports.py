@@ -50,9 +50,18 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/pairwise_rank/ref.py",
                  "src/repro_torch/core/experts.py",
                  "src/repro_torch/core/imitation.py",
-                 "src/repro_torch/core/baselines.py"):
+                 "src/repro_torch/core/baselines.py",
+                 "src/repro_torch/kernels/fleet_state/kernel.py",
+                 "src/repro_torch/kernels/fleet_state/ops.py",
+                 "src/repro_torch/kernels/fleet_state/ref.py",
+                 "src/repro_torch/fl/traces/trace.py",
+                 "src/repro_torch/fl/traces/synthetic.py",
+                 "src/repro_torch/fl/traces/models.py",
+                 "src/repro_torch/fl/async_engine.py"):
         assert want in names
-    assert (ROOT / "src/repro_torch/csrc/pairwise_rank.cu").is_file()
+    for cu in ("pairwise_rank", "select_topk", "fleet_state"):
+        assert (ROOT / f"src/repro_torch/csrc/{cu}.cu").is_file()
+    assert (ROOT / "src/repro_torch/fl/traces/data/sample_livelab.csv").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -103,8 +112,6 @@ def test_cpu_is_explicit():
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("mode", "async", "async/trace"),
-    ("trace_csv", "trace.csv", "async/trace"),
     ("topology", "edge-hier", "hierarchy"),
     ("regions", 3, "hierarchy"),
     ("attack", object(), "robustness"),
@@ -120,3 +127,52 @@ def test_unported_config_is_refused(field, value, slice_name):
 def test_unknown_policy_lists_registered():
     with pytest.raises(KeyError, match="fedrank-IP"):
         build_policy("no-such-policy")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="async"),
+    dict(executor="async"),
+    dict(mode="async", scenario="trace-synthetic-week"),
+    dict(scenario="trace-livelab"),
+    dict(trace_csv="SAMPLE"),
+])
+def test_async_and_trace_replay_are_ported(kw):
+    from repro_torch.fl.traces import sample_trace_path
+
+    kw = {k: (sample_trace_path() if v == "SAMPLE" else v) for k, v in kw.items()}
+    srv = FLServer(FLConfig(n_devices=10, k_select=2, rounds=1, l_ep=1, **kw),
+                   MLPTask(), _tiny_data(), device="cpu")
+    hist = srv.run(build_policy("fedavg"))
+    assert len(hist) == 1 and np.isfinite(hist[0].acc)
+
+
+def test_unknown_mode_is_an_error():
+    with pytest.raises(ValueError, match="mode"):
+        FLServer(FLConfig(n_devices=10, k_select=2, mode="asynchronous"),
+                 MLPTask(), _tiny_data(), device="cpu")
+
+
+def test_async_pieces_of_later_slices_refuse():
+    from repro_torch.fl import buffered_aggregate, make_executor
+
+    with pytest.raises(NotImplementedError, match="vmapped"):
+        make_executor("async", inner="vmapped")
+    p = {"w": torch.zeros(2)}
+    with pytest.raises(NotImplementedError, match="robustness"):
+        buffered_aggregate(p, [p], [1.0], [0], robust="trimmed_mean")
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_trace_lookups_refuse_missing_card(device):
+    _no_card()
+    from repro_torch.fl import build_scenario
+    from repro_torch.fl.traces import TraceSpec, sample_trace_path
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_scenario("trace-synthetic-week", 10, device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TraceSpec(csv=sample_trace_path()).resolve(10, device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FLServer(FLConfig(n_devices=10, k_select=2, mode="async",
+                          scenario="trace-livelab"),
+                 MLPTask(), _tiny_data(), device=device)
