@@ -7,8 +7,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device and build — refuses to run without CUDA, prints the card's name and
    power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
-   (``select_topk``, ``pairwise_rank`` and ``fleet_state``, one ``nvcc``
-   each, started together) and prints ``ptxas``'s registers and spills;
+   (``select_topk``, ``pairwise_rank``, ``fleet_state`` and
+   ``flash_attention``, one ``nvcc`` each, started together) and prints
+   ``ptxas``'s registers and spills;
 2. every kernel against its plain PyTorch version on the card, with the
    tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
    patterns, hidden widths, feature widths past shared memory (F=96,
@@ -19,12 +20,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    ``fleet_state`` with exact equality over both trace fixtures at fleet
    sizes 1 to 1e6, the split-time edge cases, random traces and a
    1024-device four-week synthetic trace at 1e5 queries;
+   ``flash_attention`` in fp32 and bf16 over S in {1, 7, 128, 129, 1000}
+   x G in {1, 4, 5, 8} x Dh in {64, 120, 128} x causal/bidirectional x
+   window in {None, 64, 1024}, ten cases at S = 4096 and 8192 (windows up
+   to 4096), gemma-7b's Dh=256 (G=1, S in {129, 1000}) and path 6's own
+   shapes (Yi-6B's prefill, h2o-danube's 5000-token windowed prefill);
 3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
-   version's, the least time the card could take (the bound) and, for
-   ``fleet_state``, ``torch.searchsorted`` over the f64 key;
+   version's, the least time the card could take (the bound) and a one-call
+   PyTorch yardstick: for ``fleet_state`` ``torch.searchsorted`` over the f64
+   key, for ``flash_attention`` ``scaled_dot_product_attention`` (``is_causal``,
+   or a boolean causal-and-window mask) at Yi-6B's prefill (B=4, S=1024),
+   S=8192 and S=32768, h2o-danube's (window 4096; S=5000 and 8192) and
+   Hymba's attention (window 1024);
 4. the CPU and the card agree: one round of every policy at 50 devices picks
    the same cohorts, 5 imitation-pretraining steps from the same Q-net give
-   the same Q-net, and an asynchronous trace run schedules the same jobs;
+   the same Q-net, an asynchronous trace run schedules the same jobs, and the
+   yi-6b and h2o-danube smoke LMs give the same logits over a prefill and 8
+   decode steps; at full width (2 layers, fp32) prefill by the kernel and
+   decode through the ring cache reproduce the naive full forward pass;
 5. path 1, synchronous rounds: ``FLServer`` at 1000 devices on the card,
    ``fedavg`` then ``fedrank`` (cold start), then one more FedRank round
    under ``torch.profiler``;
@@ -41,7 +54,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    aggregations each on ``trace-synthetic-week`` and ``fedrank`` on
    ``high-churn``, one more aggregation under ``torch.profiler``, and the
    batched event loop against its sequential oracle;
-10. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
+10. path 6, LM serving at full width and depth in bf16: ``serve`` on Yi-6B
+    (batch 4, prompt 1024, 32 new tokens; one ``flash_attention`` launch per
+    layer), on h2o-danube-3-4b (batch 1, prompt 5000, past its 4096 window,
+    16 new tokens) and a ``ContinuousBatcher`` on Yi-6B (4 slots, 8
+    requests, prompts of 16-128 tokens, 16 new tokens each; prompts go token
+    by token through decode, so no attention kernel launches), then one
+    Yi-6B serve call under ``torch.profiler``;
+11. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
 
 Every kernel wrapper counts its launches.  Each path is driven with every
 count set to 0 just before it and read just after; launches made to compare
@@ -58,6 +78,14 @@ fp64 throughout).  The plain version is evaluated in fp64 on the same fp32
 inputs: among 70,000 random cohorts some rows' pair terms nearly cancel,
 and an fp32 evaluation of either side cannot resolve 1e-5 of what is left.  ``fleet_state``:
 exactly equal (the kernel computes the plain version's count).
+``flash_attention`` (inputs N(0, 1); the plain version in fp32 on the same
+inputs): fp32 inputs within 2e-5 (fp32 sums over up to 8192 keys in another
+order); bf16 inputs within 2^-7 * |ref| + 2e-5 per element (the output is
+rounded once to bf16: within one bf16 ulp of its magnitude).  LMs: CPU and
+card within 1e-4 on the logits (fp32 sums in another order through two
+layers); at full width within 1e-4 * max(1, max |logit|) of the naive
+forward, 39x under the 2^-8 relative error of one bf16 rounding of the
+attention's probabilities or sums.
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -189,13 +217,15 @@ def _wrappers():
         pairwise_rank_bwd_cuda,
         pairwise_rank_fwd_cuda,
     )
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
 
     return {"select_topk": select_topk_cuda,
             "pairwise_rank_fwd": pairwise_rank_fwd_cuda,
             "pairwise_rank_bwd": pairwise_rank_bwd_cuda,
-            "fleet_state": segment_index_cuda}
+            "fleet_state": segment_index_cuda,
+            "flash_attention": flash_attention_cuda}
 
 
 def reset_counts() -> None:
@@ -1124,6 +1154,330 @@ def phase_async_oracle(torch, data):
          n_available=[h[4] for h in hb], equal=True)
 
 
+# ---------------------------------------------------------------------------
+# flash_attention and LM serving (path 6)
+# ---------------------------------------------------------------------------
+
+H100_BF16_FLOPS = 989e12     # published dense bf16 tensor-core peak, SXM, 700 W
+FA_TOL32 = 2e-5              # fp32 inputs: sums in another order (see docstring)
+FA_ULP_BF16 = 2.0 ** -7      # bf16 inputs: one bf16 ulp of the output's magnitude
+LM_TOL = 1e-4                # CPU vs card, smoke configs: fp32 sums in another order
+FULL_WIDTH_TOL = 1e-4        # full width, 2 layers, fp32: x max(1, max |logit|)
+
+
+def flash_pairs(s, causal, window):
+    """The (query, key) pairs the mask allows in one head of one sequence."""
+    import numpy as np
+
+    q = np.arange(s, dtype=np.int64)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
+    hi = q if causal else np.full(s, s - 1, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound_ms(b, s, h, kv, dh, causal, window, elt):
+    """Least time: 4 Dh operations (q.k and p.v) per allowed pair and head
+    over the inputs' rate (bf16 tensor cores, or fp32 on the CUDA cores), or
+    q + k + v read once and o written once over HBM bandwidth."""
+    ops = 4.0 * dh * flash_pairs(s, causal, window) * b * h
+    nbytes = float(elt) * (2 * b * s * h * dh + 2 * b * s * kv * dh)
+    rate = H100_FP32_FLOPS if elt == 4 else H100_BF16_FLOPS
+    t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_inputs(torch, b, s, h, kv, dh, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, s, n, dh, generator=g, device="cuda").to(dtype)
+            for n in (h, kv, kv)]
+
+
+def flash_plain(torch, q, k, v, causal, window):
+    """The plain version in fp32 on the same inputs, one KV head at a time so
+    that its (G, S, S) scores fit."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([attention_ref(q[:, :, j * g:(j + 1) * g].float(),
+                                    k[:, :, j:j + 1].float(), v[:, :, j:j + 1].float(),
+                                    causal=causal, window=window)
+                      for j in range(k.shape[2])], dim=2)
+
+
+# The shapes path 6 gives the kernel: Yi-6B's prefill (batch 4 x 1024, 32
+# query heads over 4 KV heads, Dh=128) and h2o-danube's (1 x 5000 past its
+# 4096 window, 32 over 8, Dh=120), both causal.
+FA_MAIN_CASES = {
+    "yi_prefill": dict(b=4, s=1024, kv=4, g=8, dh=128, causal=True, window=None),
+    "danube_prefill": dict(b=1, s=5000, kv=8, g=4, dh=120, causal=True, window=4096),
+}
+
+
+def phase_flash_vs_plain(torch):
+    """The kernel against its plain version over sequence lengths (ragged
+    ones too), GQA group sizes, head widths (gemma-7b's Dh=256 too), masks,
+    both input types and path 6's own shapes."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    masks = [(True, None), (False, None), (True, 64), (False, 64), (True, 1024),
+             (False, 1024)]
+    cases = [dict(b=2 if s < 1000 else 1, s=s, kv=2, g=g, dh=dh, causal=c, window=w)
+             for s in (1, 7, 128, 129, 1000) for g in (1, 4, 5, 8)
+             for dh in (64, 120, 128) for c, w in masks]
+    cases += [dict(b=1, s=s, kv=2, g=g, dh=dh, causal=c, window=w)
+              for s, g, dh, c, w in (
+                  (4096, 8, 128, True, None), (4096, 4, 120, True, 4096),
+                  (4096, 5, 64, False, 1024), (4096, 1, 64, False, None),
+                  (8192, 8, 128, True, None), (8192, 4, 120, True, 4096),
+                  (8192, 5, 64, True, 1024), (8192, 1, 128, False, None),
+                  (8192, 8, 120, False, 4096), (8192, 4, 64, True, 64))]
+    # gemma-7b's layout: 16 query heads over 16 KV heads (G=1), Dh=256
+    cases += [dict(b=b, s=s, kv=16, g=1, dh=256, causal=True, window=None)
+              for b, s in ((2, 129), (1, 1000))]
+    cases += [dict(c, label=label) for label, c in FA_MAIN_CASES.items()]
+    errs, summary = {}, []
+    for i, c in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, c["b"], c["s"], c["kv"] * c["g"], c["kv"],
+                                   c["dh"], dtype, seed=i)
+            got = flash_attention_cuda(q, k, v, causal=c["causal"], window=c["window"])
+            torch.cuda.synchronize()
+            ref = flash_plain(torch, q, k, v, c["causal"], c["window"])
+            err = (got.float() - ref).abs()
+            if dtype == torch.float32:
+                ok = bool((err <= FA_TOL32).all())
+            else:
+                ok = bool((err <= FA_ULP_BF16 * ref.abs() + FA_TOL32).all())
+            require(got.shape == q.shape and got.dtype == dtype and ok,
+                    f"flash_attention {c} {dtype}: max err {float(err.max())}")
+            key = str(dtype).replace("torch.", "")
+            errs[key] = max(errs.get(key, 0.0), float(err.max()))
+            if c["s"] >= 1000 or c["dh"] > 128:
+                summary.append([c.get("label"), c["b"], c["s"], c["kv"], c["g"], c["dh"],
+                                c["causal"], c["window"], key, float(err.max())])
+        del q, k, v, got, ref, err
+    torch.cuda.empty_cache()
+    emit(phase="kernel_vs_plain", kernel="flash_attention", cases=2 * len(cases),
+         tolerance={"float32": f"{FA_TOL32} abs",
+                    "bfloat16": f"{FA_ULP_BF16}*|ref| + {FA_TOL32}"},
+         max_abs_err=errs,
+         results_s_ge_1000_or_dh_gt_128=[["main_path", "b", "s", "kv", "g", "dh",
+                                          "causal", "window", "dtype", "max_abs_err"]]
+         + summary)
+    return errs
+
+
+def phase_flash_timings(torch, card):
+    """Kernel, plain version, bound and SDPA at the serving shapes.  SDPA is
+    one PyTorch call for the same function: ``is_causal`` for a causal mask,
+    a boolean (S, S) ``attn_mask`` (causal and window) for a sliding window;
+    its largest difference from the kernel is printed beside its time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    rows = {}
+    for label, b, s, h, kv, dh, window, dtype, plain in (
+            ("yi_prefill", 4, 1024, 32, 4, 128, None, torch.bfloat16, True),
+            ("yi_prefill_fp32", 4, 1024, 32, 4, 128, None, torch.float32, True),
+            ("yi_s8192", 1, 8192, 32, 4, 128, None, torch.bfloat16, True),
+            ("yi_s32768", 1, 32768, 32, 4, 128, None, torch.bfloat16, False),
+            ("danube_prefill", 1, 5000, 32, 8, 120, 4096, torch.bfloat16, True),
+            ("danube_s8192", 1, 8192, 32, 8, 120, 4096, torch.bfloat16, True),
+            ("hymba_attn_s8192", 1, 8192, 25, 5, 64, 1024, torch.bfloat16, True)):
+        q, k, v = flash_inputs(torch, b, s, h, kv, dh, dtype, seed=s + h)
+        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True,
+                                                         window=window))
+        plain_ms = (cuda_ms(torch, lambda: flash_plain(torch, q, k, v, True, window))
+                    if plain else None)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            pos = torch.arange(s, device="cuda")
+            allowed = ((pos[None, :] <= pos[:, None])
+                       & (pos[None, :] > pos[:, None] - window))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                      enable_gqa=True)
+        lib_ms = cuda_ms(torch, library)
+        lib_diff = float((library().transpose(1, 2).float()
+                          - flash_attention_cuda(q, k, v, causal=True, window=window)
+                          .float()).abs().max())
+        bound, bound_by = flash_bound_ms(b, s, h, kv, dh, True, window, q.element_size())
+        rows[label] = dict(b=b, s=s, h=h, kv=kv, dh=dh, window=window,
+                           dtype=str(dtype).replace("torch.", ""), ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                           library_ms=lib_ms)
+        emit(phase="timing", kernel="flash_attention", shape=label, card=card,
+             **rows[label], library_max_abs_diff=lib_diff,
+             note=None if plain else "plain version not timed: its (S, S) scores "
+                                     "do not fit")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tree_to(tree, device):
+    return {k: (tree_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+def phase_cpu_agreement_lm(torch):
+    """Smoke configs (fp32, 2 layers): the same weights prefill a prompt (by
+    the kernel route) and decode 8 teacher-forced tokens on the CPU and on
+    the card; the logits agree within LM_TOL."""
+    import numpy as np
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.data import make_lm_stream
+    from repro_torch.models import transformer as T
+
+    for arch, prompt in (("yi-6b", 40), ("h2o-danube-3-4b", 80)):   # past its window 64
+        cfg = get_model_config(arch, smoke=True)
+        params = T.init_params(0, cfg, "cpu")
+        tok = make_lm_stream(2 * (prompt + 8), vocab=cfg.vocab_size, seed=1)
+        tok = np.asarray(tok, np.int64).reshape(2, prompt + 8)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_to(params, dev)
+            t = torch.as_tensor(tok, device=dev)
+            logits, st = T.prefill(p, cfg, t[:, :prompt], max_len=prompt + 8, impl="flash")
+            steps = [logits.cpu()]
+            for i in range(prompt, prompt + 8):
+                lg, st = T.decode_step(p, cfg, st, t[:, i])
+                steps.append(lg.cpu())
+            out[dev] = steps
+        err = max(float((a - b).abs().max()) for a, b in zip(out["cpu"], out["cuda"]))
+        require(err <= LM_TOL, f"{arch}: CPU and card logits differ by {err}")
+        emit(phase="cpu_vs_card", model=arch + "-smoke", prompt=prompt, decode_steps=8,
+             max_abs_logit_err=err, tolerance=LM_TOL)
+
+
+def phase_full_width_agreement(torch):
+    """Full width, depth cut to 2 layers, fp32 weights: prefill by the kernel
+    route, then decoding through the ring cache, reproduce forward(impl=
+    "naive") over the whole sequence.  h2o-danube's prompt is past its 4096
+    window, so the prefill packs a wrapped ring and decode reads it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.data import make_lm_stream
+    from repro_torch.models import transformer as T
+
+    for arch, b, prompt in (("yi-6b", 2, 1000), ("h2o-danube-3-4b", 1, 4200)):
+        cfg = dataclasses.replace(get_model_config(arch), n_layers=2, dtype="float32")
+        params = T.init_params(0, cfg, "cuda")
+        n = prompt + 8
+        tok = np.asarray(make_lm_stream(b * n, vocab=cfg.vocab_size, seed=2),
+                         np.int64).reshape(b, n)
+        tok = torch.as_tensor(tok, device="cuda")
+        full, _ = T.forward(params, cfg, tok, impl="naive")
+        scale = max(1.0, float(full.abs().max()))
+        pre, st = T.prefill(params, cfg, tok[:, :prompt], max_len=n, impl="flash")
+        err_pre = float((pre - full[:, :prompt]).abs().max())
+        err_dec = 0.0
+        for i in range(prompt, n):
+            lg, st = T.decode_step(params, cfg, st, tok[:, i])
+            err_dec = max(err_dec, float((lg - full[:, i]).abs().max()))
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(full).all()) and full.shape == (b, n, cfg.vocab_size))
+        require(max(err_pre, err_dec) <= FULL_WIDTH_TOL * scale,
+                f"{arch}: prefill/decode vs forward {err_pre}, {err_dec} (scale {scale})")
+        emit(phase="full_width_agreement", model=arch, layers=2, dtype="float32",
+             batch=b, prompt=prompt, decode_steps=8, max_abs_logit=scale,
+             prefill_err=err_pre, decode_err=err_dec,
+             tolerance=f"{FULL_WIDTH_TOL}*max(1,|logit|)")
+        del params, full, pre, st
+        torch.cuda.empty_cache()
+
+
+def phase_serving_path(torch):
+    """Path 6, LM serving at full width and depth (bf16): Yi-6B prefill +
+    decode, h2o-danube past its window, and continuous batching on Yi-6B."""
+    import numpy as np
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatcher, Request
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    reset_counts()                                # every count to 0
+    runs = {}
+    for label, arch, batch, prompt, gen in (("yi-6b", "yi-6b", 4, 1024, 32),
+                                            ("h2o-danube-3-4b", "h2o-danube-3-4b", 1, 5000, 16)):
+        cfg = get_model_config(arch)
+        before = flash_attention_cuda.launches
+        torch.cuda.reset_peak_memory_stats()
+        stats = serve(arch, smoke=False, batch=batch, prompt_len=prompt, gen=gen,
+                      verbose=False, device="cuda")
+        launched = flash_attention_cuda.launches - before
+        require(all(math.isfinite(v) and v > 0 for v in stats.values()), stats)
+        require(launched == cfg.n_layers, f"{arch}: {launched} flash launches")
+        runs[label] = launched
+        emit(phase="serve", path="lm_serving", model=arch, layers=cfg.n_layers,
+             params=cfg.param_count(), batch=batch, prompt=prompt, gen=gen, **stats,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             flash_attention_launches=launched,
+             ring_wraps=bool(cfg.window and prompt > cfg.window))
+        torch.cuda.empty_cache()
+
+    cfg = get_model_config("yi-6b")
+    params = T.init_params(0, cfg, "cuda")
+    rng = np.random.default_rng(0)
+    batcher = ContinuousBatcher(cfg, params, batch_slots=4, max_len=256, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 129, size=8)]
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(rid=i, prompt=p, max_new=16))
+    before = flash_attention_cuda.launches
+    st = batcher.run()
+    launched = flash_attention_cuda.launches - before
+    require(st.completed == 8 and st.tokens_out == 8 * 16, st)
+    require(all(len(r.out) == 16 and all(0 <= t < cfg.vocab_size for t in r.out)
+                for r in batcher.completed))
+    require(launched == 0, f"continuous batching launched {launched} attention kernels")
+    runs["continuous_batching"] = launched
+    counts = read_counts()                        # read just after
+    emit(phase="serve", path="lm_serving", model="yi-6b", mode="continuous_batching",
+         slots=4, requests=8, prompt_lens=[len(p) for p in prompts], max_new=16,
+         completed=st.completed, decode_steps=st.decode_steps, tokens_out=st.tokens_out,
+         elapsed_s=st.elapsed_s, tok_per_s=st.tok_per_s, mean_ttft_s=st.mean_ttft_s,
+         mean_latency_s=st.mean_latency_s, flash_attention_launches=launched,
+         note="prompts are fed token by token through decode_step, as in the "
+              "reference: no attention kernel is expected on this path")
+    emit(phase="main_launches", path="lm_serving", launches=counts, per_run=runs)
+    del params, batcher
+    torch.cuda.empty_cache()
+    return counts, runs
+
+
+def phase_serve_profile(torch):
+    """One Yi-6B serve call (batch 4, prompt 1024, 8 new tokens; weights
+    drawn inside the call) under torch.profiler."""
+    from repro_torch.launch.serve import serve
+
+    wall, rows, dev_us, _ = device_profile(
+        torch, lambda: serve("yi-6b", smoke=False, batch=4, prompt_len=1024, gen=8,
+                             verbose=False, device="cuda"))
+    busy_s = sum(dev_us(e) for e in rows) / 1e6
+    fa_s = sum(dev_us(e) for e in rows if "flash_fwd_kernel" in e.key) / 1e6
+    top = sorted(rows, key=dev_us, reverse=True)[:8]
+    emit(phase="profile", path="lm_serving", model="yi-6b", wall_s=wall,
+         device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
+         device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
+         flash_attention_device_s=fa_s,
+         flash_attention_launches=sum(e.count for e in rows if "flash_fwd_kernel" in e.key),
+         top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row, shape):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
@@ -1139,6 +1493,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.flash_attention import kernel as flash_attention_kernel
     from repro_torch.kernels.fleet_state import kernel as fleet_state_kernel
     from repro_torch.kernels.pairwise_rank import kernel as pairwise_rank_kernel
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
@@ -1151,7 +1506,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY,
-                 fleet_state_kernel.LIBRARY]
+                 fleet_state_kernel.LIBRARY, flash_attention_kernel.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
         built = list(pool.map(lambda lib: lib.build(), libraries))
@@ -1173,12 +1528,16 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     fs_err = phase_fleet_state_vs_plain(torch, big)
     fs_timings = phase_fleet_state_timings(torch, card, big)
+    fa_err = phase_flash_vs_plain(torch)
+    fa_timings = phase_flash_timings(torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
     phase_cpu_agreement(torch)
     phase_cpu_agreement_policies(torch, small_data(4000, 50))
     phase_cpu_agreement_il(torch)
     phase_cpu_agreement_async(torch)
+    phase_cpu_agreement_lm(torch)
+    phase_full_width_agreement(torch)
 
     # ---- 5-7: the paths, each with its own launch counts ---------------
     t0 = time.perf_counter()
@@ -1194,6 +1553,8 @@ def main() -> int:
     async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
     phase_async_profile(torch, async_srv, async_policy)
     phase_async_oracle(torch, data)
+    lm_counts, lm_runs = phase_serving_path(torch)
+    phase_serve_profile(torch)
 
     # ---- 10: kernels line, card line, result ---------------------------
     main_shape = timings["main_probe_set"]
@@ -1220,6 +1581,13 @@ def main() -> int:
              launches_by_path={"trace_sync": trace_counts["fleet_state"],
                                **{f"async:{k}": r["launches"]["fleet_state"]
                                   for k, r in async_runs.items()}}),
+        dict(kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention/kernel.py:93",
+                          lm_counts["flash_attention"], fa_err["bfloat16"],
+                          fa_timings["yi_prefill"],
+                          {k: fa_timings["yi_prefill"][k]
+                           for k in ("b", "s", "h", "kv", "dh", "window", "dtype")}),
+             max_abs_err_fp32=fa_err["float32"], launches_by_run=lm_runs),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

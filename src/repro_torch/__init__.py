@@ -4,8 +4,15 @@ A self-contained package beside the JAX reference ``repro``: it imports
 ``torch`` and ``numpy`` and nothing of ``repro``, and mirrors its layout so
 each counterpart is easy to find:
 
-    data        synthetic datasets + Dirichlet federated partitioning (numpy)
+    configs     the model zoo's architectures and input shapes (data, the
+                reference's copy)
+    data        synthetic datasets + Dirichlet federated partitioning, the
+                LM token stream (numpy)
     models      the layers the FL tasks use (``dense_init``, ``softmax_xent``)
+                and the LM for the attention families (``layers``,
+                ``attention``, ``transformer``)
+    launch      LM serving: prefill + decode (``serve``), continuous
+                batching (``scheduler``), step functions (``steps``)
     fl          device simulator, scenarios and trace replay, client
                 training, the synchronous server and the asynchronous
                 engine, aggregation and the policy registry
@@ -19,7 +26,8 @@ each counterpart is easy to find:
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise instead of falling back.
 Parameters keep the reference's layout at public functions: dicts of
-``w1, b1, w2, b2, w3, b3`` with every ``w`` shaped ``(in, out)``.
+``w1, b1, w2, b2, w3, b3`` with every ``w`` shaped ``(in, out)``, and the
+LM's nested dict with layer leaves stacked over L.
 """
 from __future__ import annotations
 

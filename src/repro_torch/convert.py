@@ -1,12 +1,17 @@
-"""Parameter dicts between numpy arrays and the port's tensors.
+"""Parameter trees and decode states between numpy arrays and the port's
+tensors.
 
-The JAX reference keeps parameters as dicts of arrays (``w1, b1, w2, b2, w3,
-b3`` with ``w`` shaped ``(in, out)``), the same layout as the port, so a
-conversion is a leaf-wise copy:
+The JAX reference keeps parameters as (nested) dicts of arrays, the same
+layout as the port: the Q-net and ``MLPTask`` as flat dicts (``w1, b1, ...``
+with ``w`` shaped ``(in, out)``), the LM as ``{"embed", "final_norm",
+"layers": {...}, "lm_head"}`` with every ``layers`` leaf stacked over L.  A
+conversion is a leaf-wise copy that keeps each leaf's dtype:
 
     q = params_from_numpy({k: np.asarray(v) for k, v in jax_q.items()}, "cpu")
+    lm = params_from_numpy(jax.tree.map(np.asarray, jax_lm), "cpu")
 
-Works for the Q-net and for ``MLPTask`` parameters.
+bfloat16 and float8 arrays (numpy's ``ml_dtypes`` types, as ``np.asarray``
+of a JAX array gives them) are carried bit for bit.
 """
 from __future__ import annotations
 
@@ -17,16 +22,62 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 
+# numpy extension dtypes (ml_dtypes) by name -> (a numpy integer type of the
+# same width, the torch dtype of the same bits)
+_BITCAST = {"bfloat16": (np.int16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+            "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    """One array-like -> a tensor on ``device`` with the same dtype and bits."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name in _BITCAST:
+        raw, dt = _BITCAST[arr.dtype.name]
+        return torch.as_tensor(arr.view(raw)).view(dt).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a host numpy array of the same dtype (bfloat16 and
+    float8 as ``ml_dtypes`` arrays, which needs that package)."""
+    t = t.detach().cpu()
+    for name, (raw, dt) in _BITCAST.items():
+        if t.dtype == dt:
+            import ml_dtypes
+
+            bits = t.view(torch.int16 if raw is np.int16 else torch.uint8).numpy()
+            return bits.view(getattr(ml_dtypes, name))
+    return t.numpy()
+
 
 def params_from_numpy(tree: Mapping[str, Any],
-                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Array-like leaves (anything ``np.asarray`` takes) -> tensors on
-    ``device`` (the card unless ``device="cpu"``), dtype kept."""
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """Array-like leaves of a (nested) dict -> tensors on ``device`` (the
+    card unless ``device="cpu"``), dtype kept."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.array(v, copy=True), device=dev)
+    return {k: (params_from_numpy(v, dev) if isinstance(v, Mapping) else to_tensor(v, dev))
             for k, v in tree.items()}
 
 
-def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Tensors on any device -> host numpy arrays."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Tensors of a (nested) dict, on any device -> host numpy arrays."""
+    return {k: (params_to_numpy(v) if isinstance(v, Mapping) else to_numpy(v))
+            for k, v in params.items()}
+
+
+def decode_state_from_numpy(state: Any, device: DeviceLike = None):
+    """A reference ``DecodeState`` of the attention families whose leaves are
+    numpy arrays (``jax.tree.map(np.asarray, state)``) -> the port's
+    :class:`~repro_torch.models.transformer.DecodeState` on ``device``, so a
+    test can run the port's decode from the reference's prefill."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.transformer import DecodeState
+
+    if state.cross_kv is not None:
+        raise NotImplementedError("cross-attention caches come with whisper's slice")
+    dev = resolve_device(device)
+    kv = state.layers["kv"]
+    return DecodeState({"kv": KVCache(to_tensor(kv.k, dev), to_tensor(kv.v, dev),
+                                      to_tensor(kv.length, dev))},
+                       to_tensor(state.step, dev))

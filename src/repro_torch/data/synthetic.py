@@ -50,3 +50,28 @@ def make_classification_data(
     xte, yte = sample(max(2000, n_samples // 10), seed + 2)
     return (SyntheticClassificationDataset(xtr, ytr, n_classes),
             SyntheticClassificationDataset(xte, yte, n_classes))
+
+
+def make_lm_stream(
+    n_tokens: int = 1 << 16,
+    vocab: int = 256,
+    order: int = 3,
+    seed: int = 0,
+) -> np.ndarray:
+    """Synthetic token stream with learnable k-gram structure (for training the
+    reduced transformer configs end-to-end).  The reference's generator,
+    draw for draw: the stream is bit-identical for the same arguments."""
+    rng = np.random.default_rng(seed)
+    # sparse deterministic-ish transition table: each context maps to a few
+    # likely next tokens
+    n_ctx = 997  # prime hash buckets
+    table = rng.integers(0, vocab, size=(n_ctx, 4))
+    toks = list(rng.integers(0, vocab, size=order))
+    mults = rng.integers(1, n_ctx, size=order)
+    for _ in range(n_tokens - order):
+        h = int(sum(int(toks[-(i + 1)]) * int(mults[i]) for i in range(order)) % n_ctx)
+        if rng.random() < 0.85:
+            toks.append(int(table[h, rng.integers(0, 4)]))
+        else:
+            toks.append(int(rng.integers(0, vocab)))
+    return np.asarray(toks, dtype=np.int32)

@@ -9,6 +9,10 @@
     fleet_state    trace segment lookup, the state of every fleet device at
                    its time (CUDA C++, csrc/fleet_state.cu); ops.segment_index
                    is every trace scenario's mask and load query
+    flash_attention
+                   GQA prefill attention with causal and sliding-window
+                   masks (CUDA C++, csrc/flash_attention.cu);
+                   ops.flash_attention is the LM prefill's attention
 
 ``_build`` compiles each source with ``nvcc`` at first use and binds it with
 ``ctypes``.

@@ -1,0 +1,302 @@
+"""Attention layers: GQA, causal / bidirectional / cross, sliding-window,
+memory-efficient blocked attention, and single-token KV-cache decode.
+
+Implementations of the prefill attention (``attention_prefill(impl=)``):
+
+* ``naive`` — materializes the full (S, S) score matrix; oracle + smoke tests.
+* ``flash`` — the flash-attention op of ``repro_torch.kernels.flash_attention``:
+              the hand-written CUDA kernel on the card, its plain version on
+              the CPU.  The reference calls this route ``pallas`` (its TPU
+              kernel).
+* ``blocked`` — the reference's XLA flash attention with its VJP
+              (``models/flash_xla.py``), a training module: it comes with the
+              LM training slice and raises ``NotImplementedError`` until then.
+
+:func:`blocked_attention` (online softmax over query and key chunks) is the
+reference's bounded-memory attention, ported as plain tensor code.  Decode
+stays plain tensor code, as the reference leaves it to XLA.
+
+Unlike the reference, whose arrays are immutable, :func:`attention_decode`
+writes the new token's K/V into the cache tensors in place and returns a
+cache that shares them.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import apply_rope, dense_init_on
+
+NEG_INF = -1e30
+IMPLS = ("naive", "flash", "blocked")
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache. ``k``/``v``: (B, C, KV, Dh); ``length``: (B,)
+    per-sequence count of tokens ever written (positions wrap modulo C for
+    SWA). Per-sequence lengths let a continuous-batching server admit
+    requests into slots at different times."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor  # (B,) int32
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                   lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    return {
+        "wq": dense_init_on(gen, d, cfg.q_dim, dtype, lead),
+        "wk": dense_init_on(gen, d, cfg.kv_dim, dtype, lead),
+        "wv": dense_init_on(gen, d, cfg.kv_dim, dtype, lead),
+        "wo": dense_init_on(gen, cfg.q_dim, d, dtype, lead),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, dh)
+
+
+# ---------------------------------------------------------------------------
+# Core score/softmax/combine — naive
+# ---------------------------------------------------------------------------
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B,Sq,H,Dh), k: (B,Sk,KV,Dh) -> scores (B,KV,G,Sq,Sk) fp32."""
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    return s * (dh ** -0.5)
+
+
+def naive_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-matrix attention. q (B,Sq,H,Dh), k/v (B,Sk,KV,Dh) -> (B,Sq,H,Dh).
+
+    ``q_offset``: absolute position of q[0] (for decode/chunked use).
+    ``kv_valid``: optional (B, Sk) bool mask of valid cache slots.
+    """
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    scores = _gqa_scores(q, k)  # (B,KV,G,Sq,Sk)
+    qpos = q_offset + torch.arange(sq, device=dev)
+    kpos = torch.arange(sk, device=dev)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    mask5 = mask[None, None, None]
+    if kv_valid is not None:
+        mask5 = mask5 & kv_valid[:, None, None, None, :]
+    scores = torch.where(mask5, scores, torch.tensor(NEG_INF, device=dev))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocked (memory-efficient) attention
+# ---------------------------------------------------------------------------
+
+
+def blocked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over query chunks (the reference's
+    ``blocked_attention``; a Python loop in place of ``lax.scan``).
+
+    For sliding-window attention each query chunk only reads the
+    ``window + q_chunk`` keys that can be in range, so the work scales
+    O(S * window) instead of O(S^2).
+    """
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    dev = q.device
+    if s % q_chunk:
+        q_chunk = s  # degenerate small case
+    qg = q.reshape(b, s, kvh, g, dh)
+    neg = torch.tensor(NEG_INF, device=dev)
+    chunks = []
+
+    if window is not None:
+        # SWA: bounded KV view per query chunk (left-padded, as the reference)
+        span = min(window + q_chunk, s)
+        pad = span
+        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, pad, 0))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, pad, 0))
+        for qs in range(0, s, q_chunk):
+            qc = qg[:, qs:qs + q_chunk]
+            start = qs + q_chunk - span + pad
+            kc, vc = kp[:, start:start + span], vp[:, start:start + span]
+            qpos = qs + torch.arange(q_chunk, device=dev)
+            kpos = qs + q_chunk - span + torch.arange(span, device=dev)
+            mask = ((kpos[None, :] <= qpos[:, None])
+                    & (kpos[None, :] > qpos[:, None] - window) & (kpos[None, :] >= 0))
+            sc = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kc.float()) * (dh ** -0.5)
+            pr = torch.softmax(torch.where(mask[None, None, None], sc, neg), dim=-1)
+            chunks.append(torch.einsum("bkgqs,bskd->bqkgd", pr, vc.float()).to(q.dtype))
+        return torch.cat(chunks, dim=1).reshape(b, s, h, dh)
+
+    # Full (causal or bidirectional): online softmax over KV chunks.
+    if s % kv_chunk:
+        kv_chunk = s
+    for qs in range(0, s, q_chunk):
+        qc = qg[:, qs:qs + q_chunk].float()
+        qpos = qs + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, kvh, g, q_chunk), device=dev)
+        acc = torch.zeros((b, kvh, g, q_chunk, dh), device=dev)
+        for ks in range(0, s, kv_chunk):
+            kc = k[:, ks:ks + kv_chunk].float()
+            vc = v[:, ks:ks + kv_chunk].float()
+            sc = torch.einsum("bqkgd,bskd->bkgqs", qc, kc) * (dh ** -0.5)
+            if causal:
+                kpos = ks + torch.arange(kv_chunk, device=dev)
+                msk = kpos[None, :] <= qpos[:, None]
+                sc = torch.where(msk[None, None, None], sc, neg)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vc)
+            m = m_new
+        oc = acc / torch.clamp(l[..., None], min=1e-30)       # (b,kv,g,qc,dh)
+        chunks.append(oc.permute(0, 3, 1, 2, 4).to(q.dtype))  # (b,qc,kv,g,dh)
+    return torch.cat(chunks, dim=1).reshape(b, s, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# Layer-level apply
+# ---------------------------------------------------------------------------
+
+
+def attention_prefill(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    positions: Optional[torch.Tensor] = None,
+    impl: str = "naive",
+    kv_from: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (output (B,S,d), (k, v)) — k/v returned for cache priming.
+
+    ``kv_from``: encoder output for cross-attention (whisper decoder), which
+    takes the naive route whatever ``impl`` says, as in the reference.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
+    b, s, _ = x.shape
+    src = x if kv_from is None else kv_from
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(src @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(src @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    if cfg.use_rope and kv_from is None:
+        pos = positions if positions is not None else torch.arange(s, device=x.device)[None, :]
+        pos = torch.broadcast_to(pos, (b, s))
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    if impl == "blocked" and kv_from is None:
+        raise NotImplementedError(
+            "attention impl 'blocked' is the reference's models/flash_xla.py "
+            "(XLA flash attention with its VJP), a training module: it comes "
+            "with the LM training slice; use impl='flash' or 'naive'")
+    if impl == "flash" and kv_from is None:
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = naive_attention(q, k, v, causal=causal and kv_from is None, window=window)
+    y = out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    return y, (k, v)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                  device: torch.device) -> KVCache:
+    """``max_len`` should be the window size for SWA layers."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def attention_decode(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cache: KVCache,
+    cfg: ModelConfig,
+    *,
+    window: Optional[int] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B, 1, d). Cache is a ring buffer of capacity C
+    (== window for SWA, == max context for full attention).  The new K/V are
+    written into ``cache.k``/``cache.v`` in place; the returned cache shares
+    those tensors and carries ``length + 1``."""
+    b = x.shape[0]
+    dev = x.device
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = naive_attention(q, k, v, causal=False)
+        return out.reshape(b, 1, cfg.q_dim) @ p["wo"], cache
+
+    pos = cache.length.long()  # (B,) absolute position of each sequence's new token
+    if cfg.use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_new = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v_new = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    if cfg.use_rope:
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    cap = cache.k.shape[1]
+    slot = torch.remainder(pos, cap)                             # (B,)
+    bidx = torch.arange(b, device=dev)
+    cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
+
+    # absolute position of each cache slot (ring semantics), per sequence
+    idx = torch.arange(cap, device=dev)[None, :]                 # (1, cap)
+    slot_b = slot[:, None]
+    n_written = (pos + 1)[:, None]
+    wrapped = n_written > cap
+    abs_pos = torch.where(
+        idx <= slot_b, n_written - 1 - (slot_b - idx),
+        torch.where(wrapped, n_written - 1 - (slot_b + cap - idx),
+                    torch.full_like(idx, -1)))
+    kv_valid = abs_pos >= 0
+    if window is not None:
+        kv_valid &= abs_pos > pos[:, None] - window
+
+    out = naive_attention(q, cache.k, cache.v, causal=False, kv_valid=kv_valid)
+    y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
+    return y, KVCache(cache.k, cache.v, cache.length + 1)

@@ -1,16 +1,25 @@
-"""The layers the FL tasks and the Q-net use, in PyTorch.
+"""Neural-net layers in PyTorch: the FL tasks' and the Q-net's, and the LM
+zoo's norms, RoPE, MLPs and embeddings.
 
 Parameters are plain dicts of tensors in the reference's layout (``w`` shaped
-``(in, out)``).  Initializers draw from an explicit ``torch.Generator`` on the
-CPU and then move the tensor, so one seed gives the same weights on every
-device.
+``(in, out)``).  :func:`dense_init` (FL tasks, Q-net) draws from a
+``torch.Generator`` on the CPU and then moves the tensor, so one seed gives
+the same weights on every device.  The LM initializers
+(:func:`dense_init_on`, :func:`embed_init`, :func:`init_mlp`) draw on the
+generator's own device instead: at Yi-6B's 6.06B parameters a host draw
+would take tens of GB and minutes.  The reference's ``jax.random`` streams
+give other numbers; parity tests carry its weights across with
+:mod:`repro_torch.convert`.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -20,6 +29,181 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     w = torch.empty((d_in, d_out), dtype=torch.float32)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w / math.sqrt(d_in)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# LM initializers: drawn on the generator's device, ``lead`` stacked layers
+# ---------------------------------------------------------------------------
+
+
+def _fill(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype,
+          lead: Tuple[int, ...], draw: Callable[[torch.Tensor], None]) -> torch.Tensor:
+    """A ``lead + shape`` tensor of ``dtype``, each ``shape`` slice drawn in
+    fp32 by ``draw`` on ``gen``'s device (one slice of fp32 scratch)."""
+    out = torch.empty(lead + shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1, *shape)
+    tmp = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    for i in range(flat.shape[0]):
+        draw(tmp)
+        flat[i].copy_(tmp)
+    return out
+
+
+def dense_init_on(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+                  lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """The reference's ``dense_init`` distribution (N(0, 1) cut at +-2, times
+    1/sqrt(d_in)), drawn on ``gen``'s device; shape ``lead + (d_in, d_out)``."""
+    std = 1.0 / math.sqrt(d_in)
+
+    def draw(t):
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        t.mul_(std)
+
+    return _fill(gen, (d_in, d_out), dtype, lead, draw)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
+               lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """N(0, 0.02²) embedding table ``(vocab, d)``, on ``gen``'s device."""
+    return _fill(gen, (vocab, d), dtype, lead,
+                 lambda t: t.normal_(0.0, 0.02, generator=gen))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(kind: str, d: int, dtype: torch.dtype, device: torch.device,
+              lead: Tuple[int, ...] = ()) -> Params:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+                "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+    raise ValueError(kind)
+
+
+def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Norms with fp32 *statistics* but input-dtype tensor math, as the
+    reference's: the sums are fp32, the scaling is in ``x``'s dtype."""
+    d = x.shape[-1]
+    xf = x.float()
+    if kind == "rmsnorm":
+        sq = (xf * xf).sum(-1, keepdim=True)
+        inv = torch.rsqrt(sq / d + eps).to(x.dtype)
+        return x * inv * p["scale"].to(x.dtype)
+    if kind == "layernorm":
+        s1 = xf.sum(-1, keepdim=True)
+        s2 = (xf * xf).sum(-1, keepdim=True)
+        mu = s1 / d
+        var = torch.clamp(s2 / d - mu * mu, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+        return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name in ("silu", "geglu"):  # gate nonlinearity; geglu gates with gelu
+        return F.silu if name == "silu" else _gelu
+    if name == "gelu":
+        return _gelu
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(name)
+
+
+def is_gated(name: str) -> bool:
+    return name in ("silu", "geglu")
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN (gated or plain)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
+             dtype: torch.dtype, lead: Tuple[int, ...] = ()) -> Params:
+    p = {"up": dense_init_on(gen, d_model, d_ff, dtype, lead),
+         "down": dense_init_on(gen, d_ff, d_model, dtype, lead)}
+    if is_gated(activation):
+        p["gate"] = dense_init_on(gen, d_model, d_ff, dtype, lead)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    act = activation_fn(activation)
+    up = x @ p["up"]
+    if is_gated(activation):
+        up = act(x @ p["gate"]) * up
+    else:
+        up = act(up)
+    return up @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary and sinusoidal positions
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S).  Half-split
+    rotation, angles and products in fp32, the result in ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)                 # (half,)
+    angles = positions[..., :, None].float() * freqs                 # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                            # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _sin_div(d: int, device: Optional[torch.device]) -> torch.Tensor:
+    return torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                     * (-math.log(10000.0) / d))
+
+
+def sinusoidal_positions(max_len: int, d: int,
+                         device: Optional[torch.device] = None) -> torch.Tensor:
+    """Whisper-style sinusoidal position table (max_len, d)."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = _sin_div(d, device)
+    tab = torch.zeros((max_len, d), dtype=torch.float32, device=device)
+    tab[:, 0::2] = torch.sin(pos * div)
+    tab[:, 1::2] = torch.cos(pos * div)
+    return tab
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal position vector (d,) at a scalar position tensor."""
+    ang = pos.float() * _sin_div(d, pos.device)
+    out = torch.zeros((d,), dtype=torch.float32, device=pos.device)
+    out[0::2] = torch.sin(ang)
+    out[1::2] = torch.cos(ang)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

@@ -57,9 +57,19 @@ def test_port_files_exist():
                  "src/repro_torch/fl/traces/trace.py",
                  "src/repro_torch/fl/traces/synthetic.py",
                  "src/repro_torch/fl/traces/models.py",
-                 "src/repro_torch/fl/async_engine.py"):
+                 "src/repro_torch/fl/async_engine.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/yi_6b.py",
+                 "src/repro_torch/kernels/flash_attention/kernel.py",
+                 "src/repro_torch/kernels/flash_attention/ops.py",
+                 "src/repro_torch/kernels/flash_attention/ref.py",
+                 "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/scheduler.py"):
         assert want in names
-    for cu in ("pairwise_rank", "select_topk", "fleet_state"):
+    for cu in ("pairwise_rank", "select_topk", "fleet_state", "flash_attention"):
         assert (ROOT / f"src/repro_torch/csrc/{cu}.cu").is_file()
     assert (ROOT / "src/repro_torch/fl/traces/data/sample_livelab.csv").is_file()
 
@@ -176,3 +186,49 @@ def test_trace_lookups_refuse_missing_card(device):
         FLServer(FLConfig(n_devices=10, k_select=2, mode="async",
                           scenario="trace-livelab"),
                  MLPTask(), _tiny_data(), device=device)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_lm_serving_refuses_missing_card(device):
+    _no_card()
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.scheduler import ContinuousBatcher
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_model_config("yi-6b", smoke=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_params(0, cfg, device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve("yi-6b", smoke=True, batch=1, prompt_len=4, gen=1, device=device)
+    params = T.init_params(0, cfg, "cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ContinuousBatcher(cfg, params, batch_slots=1, max_len=8, device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({"layers": {"w": np.zeros((2, 2), np.float32)}}, device)
+
+
+@pytest.mark.parametrize("arch,slice_name", [
+    ("rwkv6-3b", "SSM slice"),
+    ("hymba-1.5b", "SSM slice"),
+    ("olmoe-1b-7b", "MoE"),
+    ("phi3.5-moe", "MoE"),
+    ("whisper-medium", "encoder-decoder"),
+    ("internvl2-76b", "frontend"),
+])
+def test_unported_lm_families_are_refused(arch, slice_name):
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_model_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        T.init_params(0, cfg, "cpu")
+    yi = T.init_params(0, get_model_config("yi-6b", smoke=True), "cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        T.prefill(yi, cfg, tokens)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        T.forward(yi, cfg, tokens)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        serve(arch, smoke=True, batch=1, prompt_len=4, gen=1, device="cpu")
