@@ -7,8 +7,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device and build — refuses to run without CUDA, prints the card's name and
    power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
-   (``select_topk``, ``pairwise_rank``, ``fleet_state`` and
-   ``flash_attention``, one ``nvcc`` each, started together) and prints
+   (``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
+   ``mamba`` and ``rwkv6``, one ``nvcc`` each, started together) and prints
    ``ptxas``'s registers and spills;
 2. every kernel against its plain PyTorch version on the card, with the
    tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
@@ -25,19 +25,33 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    window in {None, 64, 1024}, ten cases at S = 4096 and 8192 (windows up
    to 4096), gemma-7b's Dh=256 (G=1, S in {129, 1000}) and path 6's own
    shapes (Yi-6B's prefill, h2o-danube's 5000-token windowed prefill);
+   ``mamba`` over T in {1, 2, 7, 64, 65, 1000} x inner in {64, 100, 1600} x
+   state in {8, 16} x B in {1, 4} x zero and random h0, every lane split of
+   the state (state 1 to 64), path 7's own shape (Hymba's prefill: B=4,
+   T=2048, inner 1600, state 16, B and C strided views of one projection)
+   and a split-T composition (two calls with the state carried against
+   one); ``rwkv6`` over T in {1, 7, 64, 65, 1000} x n in {16, 32, 64} x B*H
+   in {1, 3, 160} x a mild (logw = -exp(N(-2, 1))) and a strong
+   (-exp(N(1, 1)), where the chunked form overflows) decay, n in {5, 48},
+   path 7's own shape (RWKV6-3B's prefill: B=4, T=1024, 40 heads of 64, in
+   the model's layout, views) and a split-T composition;
 3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
    version's, the least time the card could take (the bound) and a one-call
    PyTorch yardstick: for ``fleet_state`` ``torch.searchsorted`` over the f64
    key, for ``flash_attention`` ``scaled_dot_product_attention`` (``is_causal``,
    or a boolean causal-and-window mask) at Yi-6B's prefill (B=4, S=1024),
    S=8192 and S=32768, h2o-danube's (window 4096; S=5000 and 8192) and
-   Hymba's attention (window 1024);
+   Hymba's attention (window 1024); ``mamba`` and ``rwkv6`` at path 7's
+   shapes and at T=8192 (B=1), beside the plain version and the bound (no
+   one PyTorch call computes either);
 4. the CPU and the card agree: one round of every policy at 50 devices picks
    the same cohorts, 5 imitation-pretraining steps from the same Q-net give
    the same Q-net, an asynchronous trace run schedules the same jobs, and the
-   yi-6b and h2o-danube smoke LMs give the same logits over a prefill and 8
-   decode steps; at full width (2 layers, fp32) prefill by the kernel and
-   decode through the ring cache reproduce the naive full forward pass;
+   yi-6b, h2o-danube, hymba and rwkv6 smoke LMs give the same logits over a
+   prefill (by the kernels) and 8 decode steps; at full width (2 layers,
+   fp32) prefill by the kernels and decode through the ring cache and the
+   recurrent states reproduce the naive full forward pass (Yi-6B,
+   h2o-danube and Hymba past their windows, RWKV6-3B);
 5. path 1, synchronous rounds: ``FLServer`` at 1000 devices on the card,
    ``fedavg`` then ``fedrank`` (cold start), then one more FedRank round
    under ``torch.profiler``;
@@ -61,7 +75,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     requests, prompts of 16-128 tokens, 16 new tokens each; prompts go token
     by token through decode, so no attention kernel launches), then one
     Yi-6B serve call under ``torch.profiler``;
-11. a ``kernels`` line, then the card line, then ``{"ok": true, ...}``.
+11. path 7, SSM serving at full published width and depth in bf16:
+    ``serve`` on Hymba-1.5B (batch 4, prompt 2048, past its 1024 window, 32
+    new tokens; exactly 32 ``mamba`` and 32 ``flash_attention`` launches),
+    on RWKV6-3B (batch 4, prompt 1024, 32 new tokens; exactly 32 ``rwkv6``
+    launches) and a ``ContinuousBatcher`` on RWKV6-3B (4 slots, 8 requests,
+    prompts of 16-128 tokens, 16 new tokens each; no kernel launches), then
+    one serve call of each model (8 new tokens) under ``torch.profiler``;
+12. a ``kernels`` line (seven entries: every TPU kernel of the repo, with
+    ``pairwise_rank``'s forward and gradient apart), then the card line,
+    then ``{"ok": true, ...}``.
 
 Every kernel wrapper counts its launches.  Each path is driven with every
 count set to 0 just before it and read just after; launches made to compare
@@ -85,7 +108,13 @@ rounded once to bf16: within one bf16 ulp of its magnitude).  LMs: CPU and
 card within 1e-4 on the logits (fp32 sums in another order through two
 layers); at full width within 1e-4 * max(1, max |logit|) of the naive
 forward, 39x under the 2^-8 relative error of one bf16 rounding of the
-attention's probabilities or sums.
+attention's probabilities or sums.  ``mamba`` and ``rwkv6`` (fp32 in and
+out; the plain version in fp32 on the same inputs): every output and final
+state within 2e-5 * max(1, max |ref|) of its row, the (batch, channel) row
+of the scan and the (batch, head) row of the WKV (fp32 sums over the state
+entries or the n rows in another order, and the kernels' accurate ``expf``
+against PyTorch's exp; errors compound along the recurrence, so the bound
+is relative to the row's scale, which reaches ~90 for the WKV at n = 64).
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -219,13 +248,17 @@ def _wrappers():
     )
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
+    from repro_torch.kernels.mamba.kernel import selective_scan_cuda
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
 
     return {"select_topk": select_topk_cuda,
             "pairwise_rank_fwd": pairwise_rank_fwd_cuda,
             "pairwise_rank_bwd": pairwise_rank_bwd_cuda,
             "fleet_state": segment_index_cuda,
-            "flash_attention": flash_attention_cuda}
+            "flash_attention": flash_attention_cuda,
+            "mamba": selective_scan_cuda,
+            "rwkv6": wkv6_cuda}
 
 
 def reset_counts() -> None:
@@ -1336,7 +1369,9 @@ def phase_cpu_agreement_lm(torch):
     from repro_torch.data import make_lm_stream
     from repro_torch.models import transformer as T
 
-    for arch, prompt in (("yi-6b", 40), ("h2o-danube-3-4b", 80)):   # past its window 64
+    # h2o-danube and hymba past their window of 64; rwkv6 in whole 64-token chunks
+    for arch, prompt in (("yi-6b", 40), ("h2o-danube-3-4b", 80), ("hymba-1.5b", 80),
+                         ("rwkv6-3b", 128)):
         cfg = get_model_config(arch, smoke=True)
         params = T.init_params(0, cfg, "cpu")
         tok = make_lm_stream(2 * (prompt + 8), vocab=cfg.vocab_size, seed=1)
@@ -1359,9 +1394,11 @@ def phase_cpu_agreement_lm(torch):
 
 def phase_full_width_agreement(torch):
     """Full width, depth cut to 2 layers, fp32 weights: prefill by the kernel
-    route, then decoding through the ring cache, reproduce forward(impl=
-    "naive") over the whole sequence.  h2o-danube's prompt is past its 4096
-    window, so the prefill packs a wrapped ring and decode reads it."""
+    route, then decoding through the ring cache and the recurrent states,
+    reproduce forward(impl="naive") over the whole sequence.  h2o-danube's
+    prompt is past its 4096 window and Hymba's past its 1024, so the prefill
+    packs a wrapped ring and decode reads it; RWKV6's forward over 1024
+    tokens takes the chunked form, its prefill the rwkv6 kernel."""
     import dataclasses
 
     import numpy as np
@@ -1370,7 +1407,8 @@ def phase_full_width_agreement(torch):
     from repro_torch.data import make_lm_stream
     from repro_torch.models import transformer as T
 
-    for arch, b, prompt in (("yi-6b", 2, 1000), ("h2o-danube-3-4b", 1, 4200)):
+    for arch, b, prompt in (("yi-6b", 2, 1000), ("h2o-danube-3-4b", 1, 4200),
+                            ("hymba-1.5b", 2, 1100), ("rwkv6-3b", 2, 1016)):
         cfg = dataclasses.replace(get_model_config(arch), n_layers=2, dtype="float32")
         params = T.init_params(0, cfg, "cuda")
         n = prompt + 8
@@ -1478,6 +1516,309 @@ def phase_serve_profile(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# mamba and rwkv6, and SSM serving (path 7)
+# ---------------------------------------------------------------------------
+
+SSM_TOL = 2e-5               # fp32: x max(1, max |ref|) of the output's row
+SSM_NO_LIBRARY = ("none: no single PyTorch call computes a selective scan or a "
+                  "WKV recurrence")
+
+
+def check_rows(torch, got, ref, reduce_dims, what):
+    """Every element within SSM_TOL * max(1, max |ref|) of its row (the
+    dims in ``reduce_dims`` span a row); returns the max abs error."""
+    require(got.shape == ref.shape and got.dtype == torch.float32,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(ref.shape)}")
+    scale = ref.abs().amax(dim=reduce_dims, keepdim=True).clamp(min=1.0)
+    err = (got - ref).abs()
+    require(bool(torch.isfinite(got).all()) and bool((err <= SSM_TOL * scale).all()),
+            f"{what}: max err {float(err.max())}, finite {bool(torch.isfinite(got).all())}")
+    return float(err.max())
+
+
+def scan_inputs(torch, b, t, inner, state, seed, *, random_h0=True, model=False):
+    """Selective-scan inputs.  ``model``: as Hymba's ``mamba_scan`` makes
+    them: dt = softplus(N(0, 1) - 4.6), B and C column slices of one fp32
+    projection (rows of dt_rank + 2 state floats: strided views), A =
+    -exp(log(1..state)).  Otherwise the reference test's distributions."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    x = normal(b, t, inner)
+    if model:
+        dt_rank = max(1, inner // 16)
+        _, bm, cm = torch.split(normal(b, t, dt_rank + 2 * state),
+                                [dt_rank, state, state], dim=-1)
+        dt = F.softplus(normal(b, t, inner) - 4.6)
+        a = -torch.arange(1, state + 1, dtype=torch.float32,
+                          device="cuda").expand(inner, state).contiguous()
+    else:
+        dt = (normal(b, t, inner) * 0.02 + 0.05).abs()
+        bm, cm = normal(b, t, state), normal(b, t, state)
+        a = -(normal(inner, state) * 0.5 + 1.0).abs()
+    h0 = normal(b, inner, state) * 0.1 if random_h0 else torch.zeros(
+        b, inner, state, device="cuda")
+    return x, dt, bm, cm, a, h0
+
+
+def scan_bound_ms(b, t, inner, state):
+    """Least time: x, dt, B, C, A, h0 read once, y and h_T written once,
+    over HBM bandwidth; or 7 fp32 operations per (b, t, c, s) (the exp
+    counted as one) plus one per (b, t, c) over the fp32 rate."""
+    nbytes = 4.0 * (3 * b * t * inner + 2 * b * t * state + inner * state
+                    + 2 * b * inner * state)
+    ops = float(b) * t * inner * (7 * state + 1)
+    t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# Path 7's shape: Hymba's prefill, batch 4 x 2048 tokens, inner 1600, state 16
+SCAN_MAIN = dict(b=4, t=2048, inner=1600, state=16, random_h0=False, model=True)
+
+
+def phase_scan_vs_plain(torch):
+    """The mamba kernel against its plain version over T, inner, state,
+    batch and h0, every lane split of the state, path 7's own shape (B and C
+    strided views) and a split-T composition."""
+    from repro_torch.kernels.mamba.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba.ref import selective_scan_ref
+
+    cases = [dict(b=b, t=t, inner=inner, state=state, random_h0=h0)
+             for t in (1, 2, 7, 64, 65, 1000) for inner in (64, 100, 1600)
+             for state in (8, 16) for b in (1, 4) for h0 in (False, True)]
+    cases += [dict(b=2, t=129, inner=96, state=st, random_h0=True)
+              for st in (1, 4, 20, 32, 64)]
+    cases += [dict(SCAN_MAIN, label="hymba_prefill")]
+    err_y = err_h = 0.0
+    for i, c in enumerate(cases):
+        args = scan_inputs(torch, c["b"], c["t"], c["inner"], c["state"], seed=i,
+                           random_h0=c["random_h0"], model=c.get("model", False))
+        y, h = selective_scan_cuda(*args)
+        torch.cuda.synchronize()
+        ry, rh = selective_scan_ref(*args)
+        err_y = max(err_y, check_rows(torch, y, ry, (1,), f"mamba y {c}"))
+        err_h = max(err_h, check_rows(torch, h, rh, (2,), f"mamba h_T {c}"))
+    # split-T composition at path 7's shape: two calls with the state carried
+    x, dt, bm, cm, a, h0 = scan_inputs(torch, **{k: SCAN_MAIN[k] for k in (
+        "b", "t", "inner", "state")}, seed=999, random_h0=True, model=True)
+    y, h = selective_scan_cuda(x, dt, bm, cm, a, h0)
+    cut = 1000
+    y1, h1 = selective_scan_cuda(x[:, :cut], dt[:, :cut], bm[:, :cut], cm[:, :cut], a, h0)
+    y2, h2 = selective_scan_cuda(x[:, cut:], dt[:, cut:], bm[:, cut:], cm[:, cut:], a, h1)
+    torch.cuda.synchronize()
+    err_split = max(check_rows(torch, torch.cat([y1, y2], 1), y, (1,), "mamba split y"),
+                    check_rows(torch, h2, h, (2,), "mamba split h_T"))
+    emit(phase="kernel_vs_plain", kernel="mamba", cases=len(cases) + 1,
+         tolerance=f"{SSM_TOL}*max(1,|ref|) of the (batch, channel) row",
+         max_abs_err_y=err_y, max_abs_err_h=err_h, max_abs_err_split_t=err_split,
+         main_shape={k: SCAN_MAIN[k] for k in ("b", "t", "inner", "state")},
+         b_c_strided=True)
+    return max(err_y, err_h, err_split)
+
+
+def wkv_inputs(torch, b, t, h, n, seed, *, decay="mild", random_s0=True, u_per_batch=False):
+    """RWKV6 inputs in the model's layout: r, k, v, logw (B, T, H, n) views
+    of (B, T, H * n) tensors, u (H, n) (or (B, H, n) if ``u_per_batch``),
+    s0 (B, H, n, n).  ``decay``: "mild"
+    logw = -exp(N(-2, 1)) (the reference test's), "strong" -exp(N(1, 1))
+    (where the chunked form overflows), "model" -exp(N(-6, 0.5)) (the
+    init's w0 = -6)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    mean, sd = {"mild": (-2.0, 1.0), "strong": (1.0, 1.0), "model": (-6.0, 0.5)}[decay]
+    r, k, v = (normal(b, t, h * n).view(b, t, h, n) for _ in range(3))
+    logw = (-torch.exp(normal(b, t, h * n) * sd + mean)).view(b, t, h, n)
+    u = normal(*((b, h, n) if u_per_batch else (h, n))) * 0.1
+    s0 = normal(b, h, n, n) * 0.1 if random_s0 else torch.zeros(b, h, n, n, device="cuda")
+    return r, k, v, logw, u, s0
+
+
+def wkv_bound_ms(b, t, h, n):
+    """Least time: r, k, v, logw read once, y written once, u, s0 and s_T,
+    over HBM bandwidth; or 5 n^2 + 4 n fp32 operations per token and head
+    (r.S; w S + k v; the bonus term; the exp) over the fp32 rate."""
+    nbytes = 4.0 * (5 * b * t * h * n + h * n + 2 * b * h * n * n)
+    ops = float(b) * t * h * (5 * n * n + 4 * n)
+    t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# Path 7's shape: RWKV6-3B's prefill, batch 4 x 1024 tokens, 40 heads of 64
+WKV_MAIN = dict(b=4, t=1024, h=40, n=64)
+
+
+def phase_wkv_vs_plain(torch):
+    """The rwkv6 kernel against its plain version over T, n and B * H in the
+    reference's (BH, T, n) layout (through ``ops.wkv6``), mild and strong
+    decay, odd widths, path 7's own shape in the model's layout (views) and a
+    split-T composition."""
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref, wkv6_ref
+
+    cases = [dict(bh=bh, t=t, n=n, decay=dec)
+             for t in (1, 7, 64, 65, 1000) for n in (16, 32, 64)
+             for bh in (1, 3, 160) for dec in ("mild", "strong")]
+    cases += [dict(bh=3, t=65, n=n, decay="mild") for n in (5, 48)]
+    err_y = err_s = 0.0
+    for i, c in enumerate(cases):
+        r, k, v, logw, u, s0 = wkv_inputs(torch, c["bh"], c["t"], 1, c["n"], seed=i,
+                                          decay=c["decay"], u_per_batch=True)
+        args = (r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0], u[:, 0], s0[:, 0])
+        y, s = wkv6(*args)
+        torch.cuda.synchronize()
+        ry, rs = wkv6_ref(*args)
+        err_y = max(err_y, check_rows(torch, y, ry, (1, 2), f"rwkv6 y {c}"))
+        err_s = max(err_s, check_rows(torch, s, rs, (1, 2), f"rwkv6 s_T {c}"))
+    main = []
+    for dec in ("model", "strong"):
+        args = wkv_inputs(torch, **WKV_MAIN, seed=500, decay=dec, random_s0=False)
+        y, s = wkv6_cuda(*args)
+        torch.cuda.synchronize()
+        ry, rs = wkv6_heads_ref(*args)
+        main.append([dec, check_rows(torch, y, ry, (1, 3), f"rwkv6 main y {dec}"),
+                     check_rows(torch, s, rs, (2, 3), f"rwkv6 main s_T {dec}")])
+        err_y, err_s = max(err_y, main[-1][1]), max(err_s, main[-1][2])
+    # split-T composition at path 7's shape
+    r, k, v, logw, u, s0 = wkv_inputs(torch, **WKV_MAIN, seed=501, decay="mild")
+    y, s = wkv6_cuda(r, k, v, logw, u, s0)
+    cut = 400
+    y1, s1 = wkv6_cuda(r[:, :cut], k[:, :cut], v[:, :cut], logw[:, :cut], u, s0)
+    y2, s2 = wkv6_cuda(r[:, cut:], k[:, cut:], v[:, cut:], logw[:, cut:], u, s1)
+    torch.cuda.synchronize()
+    err_split = max(check_rows(torch, torch.cat([y1, y2], 1), y, (1, 3), "rwkv6 split y"),
+                    check_rows(torch, s2, s, (2, 3), "rwkv6 split s_T"))
+    emit(phase="kernel_vs_plain", kernel="rwkv6", cases=len(cases) + len(main) + 1,
+         tolerance=f"{SSM_TOL}*max(1,|ref|) of the (batch, head) row",
+         max_abs_err_y=err_y, max_abs_err_s=err_s, max_abs_err_split_t=err_split,
+         main_shape=WKV_MAIN, main_layout="(B, T, H, n) views of (B, T, H*n) tensors",
+         main_results=[["decay", "y_err", "s_err"]] + main)
+    torch.cuda.empty_cache()
+    return max(err_y, err_s, err_split)
+
+
+def phase_ssm_timings(torch, card):
+    """Kernel, plain version and bound at path 7's shapes and at T=8192.
+    No one PyTorch call computes either function, so there is no library
+    yardstick."""
+    from repro_torch.kernels.mamba.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba.ref import selective_scan_ref
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref
+
+    rows = {}
+    for label, b, t in (("hymba_prefill", 4, 2048), ("hymba_t8192", 1, 8192)):
+        args = scan_inputs(torch, b, t, 1600, 16, seed=t, random_h0=False, model=True)
+        ms = cuda_ms(torch, lambda: selective_scan_cuda(*args))
+        plain_ms = cuda_ms(torch, lambda: selective_scan_ref(*args), reps=3, warmup=1)
+        bound, bound_by = scan_bound_ms(b, t, 1600, 16)
+        rows[label] = dict(b=b, t=t, inner=1600, state=16, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by, library_ms=None)
+        emit(phase="timing", kernel="mamba", shape=label, card=card, **rows[label],
+             library_note=SSM_NO_LIBRARY)
+    for label, b, t in (("rwkv6_prefill", 4, 1024), ("rwkv6_t8192", 1, 8192)):
+        args = wkv_inputs(torch, b, t, 40, 64, seed=t, decay="model", random_s0=False)
+        ms = cuda_ms(torch, lambda: wkv6_cuda(*args))
+        plain_ms = cuda_ms(torch, lambda: wkv6_heads_ref(*args), reps=3, warmup=1)
+        bound, bound_by = wkv_bound_ms(b, t, 40, 64)
+        rows[label] = dict(b=b, t=t, h=40, n=64, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by, library_ms=None)
+        emit(phase="timing", kernel="rwkv6", shape=label, card=card, **rows[label],
+             library_note=SSM_NO_LIBRARY)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ssm_serving_path(torch):
+    """Path 7, SSM serving at full published width and depth (bf16): Hymba
+    past its 1024 window, RWKV6-3B, and continuous batching on RWKV6-3B."""
+    import numpy as np
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.scheduler import ContinuousBatcher, Request
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    reset_counts()                                # every count to 0
+    runs = {}
+    for arch, prompt, want in (
+            ("hymba-1.5b", 2048, {"mamba": 32, "flash_attention": 32}),
+            ("rwkv6-3b", 1024, {"rwkv6": 32})):
+        cfg = get_model_config(arch)
+        before = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        stats = serve(arch, smoke=False, batch=4, prompt_len=prompt, gen=32,
+                      verbose=False, device="cuda")
+        launched = {k: n - before[k] for k, n in read_counts().items()}
+        require(all(math.isfinite(v) and v > 0 for v in stats.values()), stats)
+        require(launched == {k: want.get(k, 0) for k in launched},
+                f"{arch}: launches {launched}, expected {want}")
+        runs[arch] = launched
+        emit(phase="serve", path="ssm_serving", model=arch, layers=cfg.n_layers,
+             params=cfg.param_count(), batch=4, prompt=prompt, gen=32, **stats,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launched,
+             ring_wraps=bool(cfg.window and prompt > cfg.window))
+        torch.cuda.empty_cache()
+
+    cfg = get_model_config("rwkv6-3b")
+    params = T.init_params(0, cfg, "cuda")
+    rng = np.random.default_rng(0)
+    batcher = ContinuousBatcher(cfg, params, batch_slots=4, max_len=256, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 129, size=8)]
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(rid=i, prompt=p, max_new=16))
+    before = read_counts()
+    st = batcher.run()
+    launched = {k: n - before[k] for k, n in read_counts().items()}
+    require(st.completed == 8 and st.tokens_out == 8 * 16, st)
+    require(all(len(r.out) == 16 and all(0 <= t < cfg.vocab_size for t in r.out)
+                for r in batcher.completed))
+    require(not any(launched.values()), f"continuous batching launched {launched}")
+    runs["continuous_batching"] = launched
+    counts = read_counts()                        # read just after
+    emit(phase="serve", path="ssm_serving", model="rwkv6-3b", mode="continuous_batching",
+         slots=4, requests=8, prompt_lens=[len(p) for p in prompts], max_new=16,
+         completed=st.completed, decode_steps=st.decode_steps, tokens_out=st.tokens_out,
+         elapsed_s=st.elapsed_s, tok_per_s=st.tok_per_s, mean_ttft_s=st.mean_ttft_s,
+         mean_latency_s=st.mean_latency_s, launches=launched,
+         note="prompts are fed token by token through decode_step, as in the "
+              "reference: no kernel is expected on this path")
+    emit(phase="main_launches", path="ssm_serving", launches=counts, per_run=runs)
+    del params, batcher
+    torch.cuda.empty_cache()
+    return counts, runs
+
+
+def phase_ssm_serve_profile(torch):
+    """One serve call of each model (batch 4, its path-7 prompt, 8 new
+    tokens; weights drawn inside the call) under torch.profiler."""
+    from repro_torch.launch.serve import serve
+
+    for arch, prompt, names in (("hymba-1.5b", 2048, ("selective_scan", "flash_fwd")),
+                                ("rwkv6-3b", 1024, ("wkv6",))):
+        wall, rows, dev_us, _ = device_profile(
+            torch, lambda: serve(arch, smoke=False, batch=4, prompt_len=prompt, gen=8,
+                                 verbose=False, device="cuda"))
+        busy_s = sum(dev_us(e) for e in rows) / 1e6
+        top = sorted(rows, key=dev_us, reverse=True)[:8]
+        emit(phase="profile", path="ssm_serving", model=arch, wall_s=wall,
+             device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
+             device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
+             port_kernels={n: [sum(dev_us(e) for e in rows if n in e.key) / 1e3,
+                               sum(e.count for e in rows if n in e.key)] for n in names},
+             top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+        torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row, shape):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
@@ -1495,7 +1836,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import kernel as flash_attention_kernel
     from repro_torch.kernels.fleet_state import kernel as fleet_state_kernel
+    from repro_torch.kernels.mamba import kernel as mamba_kernel
     from repro_torch.kernels.pairwise_rank import kernel as pairwise_rank_kernel
+    from repro_torch.kernels.rwkv6 import kernel as rwkv6_kernel
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
 
     # ---- 1: device and build -------------------------------------------
@@ -1506,7 +1849,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY,
-                 fleet_state_kernel.LIBRARY, flash_attention_kernel.LIBRARY]
+                 fleet_state_kernel.LIBRARY, flash_attention_kernel.LIBRARY,
+                 mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
         built = list(pool.map(lambda lib: lib.build(), libraries))
@@ -1530,6 +1874,9 @@ def main() -> int:
     fs_timings = phase_fleet_state_timings(torch, card, big)
     fa_err = phase_flash_vs_plain(torch)
     fa_timings = phase_flash_timings(torch, card)
+    scan_err = phase_scan_vs_plain(torch)
+    wkv_err = phase_wkv_vs_plain(torch)
+    ssm_timings = phase_ssm_timings(torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
     phase_cpu_agreement(torch)
@@ -1539,7 +1886,7 @@ def main() -> int:
     phase_cpu_agreement_lm(torch)
     phase_full_width_agreement(torch)
 
-    # ---- 5-7: the paths, each with its own launch counts ---------------
+    # ---- 5-11: the paths, each with its own launch counts --------------
     t0 = time.perf_counter()
     data = small_data(64_000, 1000)
     emit(phase="main_data", samples=64_000, clients=1000,
@@ -1555,8 +1902,10 @@ def main() -> int:
     phase_async_oracle(torch, data)
     lm_counts, lm_runs = phase_serving_path(torch)
     phase_serve_profile(torch)
+    ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
+    phase_ssm_serve_profile(torch)
 
-    # ---- 10: kernels line, card line, result ---------------------------
+    # ---- 12: kernels line, card line, result ---------------------------
     main_shape = timings["main_probe_set"]
     il = pr_timings["il_b16_n30"]
     fs_main = fs_timings["main_week"]
@@ -1587,7 +1936,19 @@ def main() -> int:
                           fa_timings["yi_prefill"],
                           {k: fa_timings["yi_prefill"][k]
                            for k in ("b", "s", "h", "kv", "dh", "window", "dtype")}),
-             max_abs_err_fp32=fa_err["float32"], launches_by_run=lm_runs),
+             max_abs_err_fp32=fa_err["float32"], launches_by_run=lm_runs,
+             launches_ssm_serving=ssm_counts["flash_attention"]),
+        dict(kernel_entry("mamba", "src/repro_torch/csrc/mamba.cu",
+                          "src/repro/kernels/mamba/kernel.py:68",
+                          ssm_counts["mamba"], scan_err, ssm_timings["hymba_prefill"],
+                          {k: ssm_timings["hymba_prefill"][k]
+                           for k in ("b", "t", "inner", "state")}),
+             library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs),
+        dict(kernel_entry("rwkv6", "src/repro_torch/csrc/rwkv6.cu",
+                          "src/repro/kernels/rwkv6/kernel.py:74",
+                          ssm_counts["rwkv6"], wkv_err, ssm_timings["rwkv6_prefill"],
+                          {k: ssm_timings["rwkv6_prefill"][k] for k in ("b", "t", "h", "n")}),
+             library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

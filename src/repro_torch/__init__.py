@@ -9,8 +9,8 @@ each counterpart is easy to find:
     data        synthetic datasets + Dirichlet federated partitioning, the
                 LM token stream (numpy)
     models      the layers the FL tasks use (``dense_init``, ``softmax_xent``)
-                and the LM for the attention families (``layers``,
-                ``attention``, ``transformer``)
+                and the LM for the attention, SSM and hybrid families
+                (``layers``, ``attention``, ``ssm``, ``transformer``)
     launch      LM serving: prefill + decode (``serve``), continuous
                 batching (``scheduler``), step functions (``steps``)
     fl          device simulator, scenarios and trace replay, client

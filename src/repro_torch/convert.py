@@ -67,17 +67,28 @@ def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def decode_state_from_numpy(state: Any, device: DeviceLike = None):
-    """A reference ``DecodeState`` of the attention families whose leaves are
-    numpy arrays (``jax.tree.map(np.asarray, state)``) -> the port's
+    """A reference ``DecodeState`` whose leaves are numpy arrays
+    (``jax.tree.map(np.asarray, state)``) -> the port's
     :class:`~repro_torch.models.transformer.DecodeState` on ``device``, so a
-    test can run the port's decode from the reference's prefill."""
+    test can run the port's decode from the reference's prefill.  Its
+    layers may hold ``"kv"`` (ring K/V caches), ``"mamba"`` (Hymba's Mamba
+    state) and ``"rwkv"`` (RWKV6's state), each a named tuple of stacked
+    arrays with the port's field order."""
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import MambaState, RWKVState
     from repro_torch.models.transformer import DecodeState
 
     if state.cross_kv is not None:
         raise NotImplementedError("cross-attention caches come with whisper's slice")
     dev = resolve_device(device)
-    kv = state.layers["kv"]
-    return DecodeState({"kv": KVCache(to_tensor(kv.k, dev), to_tensor(kv.v, dev),
-                                      to_tensor(kv.length, dev))},
-                       to_tensor(state.step, dev))
+    kinds = {"kv": KVCache, "mamba": MambaState, "rwkv": RWKVState}
+    layers = {}
+    for name, leaves in state.layers.items():
+        if name not in kinds:
+            raise NotImplementedError(f"decode-state leaf {name!r} is not ported; "
+                                      f"have {sorted(kinds)}")
+        if tuple(leaves._fields) != kinds[name]._fields:
+            raise ValueError(f"{name}: fields {leaves._fields}, expected "
+                             f"{kinds[name]._fields}")
+        layers[name] = kinds[name](*(to_tensor(a, dev) for a in leaves))
+    return DecodeState(layers, to_tensor(state.step, dev))

@@ -13,6 +13,11 @@
                    GQA prefill attention with causal and sliding-window
                    masks (CUDA C++, csrc/flash_attention.cu);
                    ops.flash_attention is the LM prefill's attention
+    mamba          Mamba-1 selective scan, the state in registers (CUDA C++,
+                   csrc/mamba.cu); ops.selective_scan is Hymba's Mamba heads'
+                   prefill scan
+    rwkv6          RWKV6 WKV recurrence with data-dependent decay (CUDA C++,
+                   csrc/rwkv6.cu); ops.wkv6_heads is RWKV6's prefill WKV core
 
 ``_build`` compiles each source with ``nvcc`` at first use and binds it with
 ``ctypes``.

@@ -80,13 +80,15 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     def _reset_slot_state(self, slot: int) -> None:
-        """Zero one slot's cache and step in place: its K/V, its per-layer
-        cache length and its step, so the new request's positions start
-        fresh while other slots keep decoding."""
-        kv = self.state.layers["kv"]
-        kv.k[:, slot] = 0
-        kv.v[:, slot] = 0
-        kv.length[:, slot] = 0
+        """Zero one slot's caches and step in place: every per-slot leaf
+        with leading (L, B) dims (K/V and per-layer cache lengths, the Mamba
+        state and conv buffer, RWKV6's WKV state and both token shifts), as
+        the reference's ``zero_slot``, so the new request starts fresh while
+        other slots keep decoding."""
+        for cache in self.state.layers.values():
+            for leaf in cache:
+                if leaf.dim() >= 2 and leaf.shape[:2] == (self.cfg.n_layers, self.b):
+                    leaf[:, slot] = 0
         self.state.step[slot] = 0
 
     def _admit(self) -> None:

@@ -1,10 +1,18 @@
 """Batched serving: prefill + decode loop with temperature sampling.
 
-CPU-feasible with reduced configs (``device="cpu"``); on the card at full
-width:
+``--arch`` names any model of the attention, SSM and hybrid families:
+yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b, rwkv6-3b, hymba-1.5b.
+CPU-feasible with reduced configs (``--device cpu``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+        --device cpu --temperature 0
+
+on the card at full width:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \\
         --batch 4 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full \\
+        --batch 4 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
@@ -43,12 +51,14 @@ def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
     """Prefill ``batch`` prompts of ``prompt_len`` tokens from the synthetic
     stream, then decode ``gen`` tokens each; returns the reference's stats.
 
-    Prefill attention goes through the flash kernel (``impl="flash"``): the
-    one departure from the reference's ``serve``, which prefills with
-    ``T.prefill``'s default ``impl="naive"``, its oracle for smoke tests (its
-    Pallas route is the TPU's prefill attention).  At full width a naive
-    prefill builds the (S, S) score matrix of every head that the kernel
-    exists to avoid; ``impl`` is an existing argument of ``T.prefill``.
+    Prefill goes through the kernels (``impl="flash"``): flash attention,
+    and for Hymba and RWKV6 the mamba selective scan and the rwkv6 WKV.
+    That is the one departure from the reference's ``serve``, which
+    prefills with ``T.prefill``'s default ``impl="naive"``, its oracle for
+    smoke tests (its Pallas routes are the TPU's).  At full width a naive
+    prefill builds the (S, S) score matrix of every head that the attention
+    kernel exists to avoid; ``impl`` is an existing argument of
+    ``T.prefill``.
     Decode goes through ``T.decode_step``.  Sampling draws from a
     ``torch.Generator`` on the device, another stream than
     ``jax.random.categorical``'s; ``temperature=0`` is greedy.
@@ -98,7 +108,9 @@ def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--arch", default="yi-6b",
+                    help="yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b, rwkv6-3b "
+                         "or hymba-1.5b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4)

@@ -27,10 +27,10 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, impl: str = "flash"
                       ) -> Callable[[Any, Dict[str, torch.Tensor]],
                                     Tuple[torch.Tensor, T.DecodeState]]:
     """Serving prefill: run the prompt, emit last-position logits + the primed
-    decode state (full-seq logits are never materialized).  Prefill
-    attention goes through the flash kernel by default (the reference's
-    default here is its XLA ``blocked`` route, which the port brings with
-    training)."""
+    decode state (full-seq logits are never materialized).  Prefill goes
+    through the kernels by default: flash attention, and the mamba and rwkv6
+    kernels for Hymba and RWKV6 (the reference's default here is its XLA
+    ``blocked`` attention route, which the port brings with training)."""
 
     def prefill_step(params, batch):
         logits, state = T.prefill(params, cfg, batch["tokens"],

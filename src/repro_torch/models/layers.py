@@ -5,7 +5,8 @@ Parameters are plain dicts of tensors in the reference's layout (``w`` shaped
 ``(in, out)``).  :func:`dense_init` (FL tasks, Q-net) draws from a
 ``torch.Generator`` on the CPU and then moves the tensor, so one seed gives
 the same weights on every device.  The LM initializers
-(:func:`dense_init_on`, :func:`embed_init`, :func:`init_mlp`) draw on the
+(:func:`dense_init_on`, :func:`normal_on`, :func:`embed_init`,
+:func:`init_mlp`) draw on the
 generator's own device instead: at Yi-6B's 6.06B parameters a host draw
 would take tens of GB and minutes.  The reference's ``jax.random`` streams
 give other numbers; parity tests carry its weights across with
@@ -62,11 +63,16 @@ def dense_init_on(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtyp
     return _fill(gen, (d_in, d_out), dtype, lead, draw)
 
 
+def normal_on(gen: torch.Generator, shape: Tuple[int, ...], std: float,
+              dtype: torch.dtype, lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """N(0, std²) entries, drawn on ``gen``'s device; shape ``lead + shape``."""
+    return _fill(gen, shape, dtype, lead, lambda t: t.normal_(0.0, std, generator=gen))
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
                lead: Tuple[int, ...] = ()) -> torch.Tensor:
     """N(0, 0.02²) embedding table ``(vocab, d)``, on ``gen``'s device."""
-    return _fill(gen, (vocab, d), dtype, lead,
-                 lambda t: t.normal_(0.0, 0.02, generator=gen))
+    return normal_on(gen, (vocab, d), 0.02, dtype, lead)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,20 @@
-"""The LM of the reference's model zoo, for the attention families.
+"""The LM of the reference's model zoo: the attention, SSM and hybrid
+families.
 
-One parameterized decoder built from GQA attention (full or sliding-window)
-and a (Ge)GLU / relu2 FFN: the ``dense`` family of ``repro.models.transformer``
-(yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b).  Other families are
-refused where a model is built or run (:func:`init_params`, :func:`forward`,
-:func:`prefill`, :func:`init_decode_state`), naming the slice of the port
-that brings them: mixture-of-experts layers, the SSM and hybrid families
-(rwkv6, hymba), whisper's encoder-decoder and internvl2's frontend.
+One parameterized decoder built from
+
+* ``dense``: GQA attention (full or sliding-window) + (Ge)GLU / relu2 FFN
+  (yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b);
+* ``ssm`` (rwkv6-3b): RWKV6 time mix (data-dependent decay) + channel mix,
+  no positions;
+* ``hybrid`` (hymba-1.5b): sliding-window attention and Mamba heads in
+  parallel on the same normed input, averaged, then the FFN.
+
+Other families are refused where a model is built or run
+(:func:`init_params`, :func:`forward`, :func:`prefill`,
+:func:`init_decode_state`), naming the slice of the port that brings them:
+mixture-of-experts layers, whisper's encoder-decoder and internvl2's
+frontend.
 
 Parameters are the reference's pytree as nested dicts of tensors:
 ``{"embed", "final_norm", "layers": {...}, "lm_head"}``, every ``layers``
@@ -25,6 +33,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -36,27 +45,20 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 
-SSM_SLICE = ("the SSM slice (Hymba and RWKV6, models/ssm.py, with the mamba "
-             "and rwkv6 kernels)")
 MOE_SLICE = ("the MoE / encoder-decoder / frontend slice (models/moe.py, "
              "whisper's encoder and cross-attention, internvl2's frontend)")
 
 
 class DecodeState(NamedTuple):
-    layers: Any                      # {"kv": KVCache of (L, B, ...) tensors}
+    layers: Any                      # {"kv": KVCache, "mamba": MambaState,
+    #                                  "rwkv": RWKVState} of (L, B, ...) tensors
     step: torch.Tensor               # (B,) int32: tokens processed per sequence
     cross_kv: Optional[Any] = None   # whisper: stacked (k, v) from encoder
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the slice of the port that brings
-    ``cfg``'s family, unless it is an attention family the port runs."""
-    if cfg.attention == "none":
-        raise NotImplementedError(f"{cfg.name}: RWKV6 layers are not ported yet; "
-                                  f"they come with {SSM_SLICE}")
-    if cfg.attention == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: hybrid attention + Mamba layers are "
-                                  f"not ported yet; they come with {SSM_SLICE}")
+    ``cfg``'s family, unless it is a family the port runs."""
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not "
                                   f"ported yet; they come with {MOE_SLICE}")
@@ -66,7 +68,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend.kind} frontend is "
                                   f"not ported yet; it comes with {MOE_SLICE}")
-    if cfg.attention not in ("full", "swa"):
+    if cfg.attention not in ("full", "swa", "hybrid", "none"):
         raise ValueError(f"{cfg.name}: unknown attention kind {cfg.attention!r}")
 
 
@@ -101,9 +103,15 @@ def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None) -> Param
     layers: Params = {
         "norm1": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
         "norm2": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
-        "attn": attn.init_attention(gen, cfg, dtype, lead),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype, lead),
     }
+    if cfg.attention == "none":  # rwkv
+        layers["time_mix"] = ssm_lib.init_rwkv_time_mix(gen, cfg, dtype, lead)
+        layers["channel_mix"] = ssm_lib.init_rwkv_channel_mix(gen, cfg, dtype, lead)
+    else:
+        layers["attn"] = attn.init_attention(gen, cfg, dtype, lead)
+        if cfg.attention == "hybrid":
+            layers["mamba"] = ssm_lib.init_mamba(gen, cfg, dtype, lead)
+        layers["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype, lead)
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": init_norm(cfg.norm, cfg.d_model, torch.float32, dev),
@@ -123,23 +131,48 @@ def _window(cfg: ModelConfig) -> Optional[int]:
     return cfg.window if cfg.attention in ("swa", "hybrid") else None
 
 
+def _mixer_impl(impl: str) -> str:
+    """The SSM mixers' route for the model's ``impl``: the kernels under
+    ``"flash"``, the reference's default math otherwise."""
+    if impl not in attn.IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; have {attn.IMPLS}")
+    return "cuda" if impl == "flash" else "xla"
+
+
 def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params
-               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One layer over a full sequence: (x, (k, v))."""
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One layer over a full sequence, from zero recurrent state: (x, the
+    layer's cache material): ``{"rwkv": RWKVState}`` for RWKV6, else
+    ``{"kv": (k, v)}`` and, for the hybrid, ``"mamba": MambaState``."""
+    b = x.shape[0]
     h = apply_norm(cfg.norm, lp["norm1"], x)
+    if cfg.attention == "none":
+        st0 = ssm_lib.init_rwkv_state(cfg, b, x.device)
+        y, st = ssm_lib.rwkv_time_mix_chunked(lp["time_mix"], h, st0, cfg,
+                                              impl=_mixer_impl(impl))
+        x = x + y
+        h = apply_norm(cfg.norm, lp["norm2"], x)
+        y, last_cm = ssm_lib.rwkv_channel_mix(lp["channel_mix"], h, torch.zeros_like(h[:, 0]))
+        return x + y, {"rwkv": ssm_lib.RWKVState(st.wkv, st.shift_tm, last_cm)}
     a_out, kv = attn.attention_prefill(lp["attn"], h, cfg, causal=True,
                                        window=_window(cfg), impl=impl)
+    cache: Dict[str, Any] = {"kv": kv}
+    if cfg.attention == "hybrid":
+        m0 = ssm_lib.init_mamba_state(cfg, b, x.device)
+        m_out, cache["mamba"] = ssm_lib.mamba_scan(lp["mamba"], h, m0, cfg,
+                                                   impl=_mixer_impl(impl))
+        a_out = 0.5 * (a_out + m_out)
     x = x + a_out
     h = apply_norm(cfg.norm, lp["norm2"], x)
-    return x + apply_mlp(lp["mlp"], h, cfg.activation), kv
+    return x + apply_mlp(lp["mlp"], h, cfg.activation), cache
 
 
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings (B, S, d).  ``frontend_embeds`` keeps the reference's
     signature; the VLM frontend comes with its slice, so it is unused here.
-    Every supported family uses RoPE, so no position table is added (the
-    reference adds whisper's sinusoids here)."""
+    No position table is added: the attention families use RoPE and RWKV6
+    no positions (the reference adds whisper's sinusoids here)."""
     return params["embed"][tokens.long()]
 
 
@@ -156,7 +189,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             impl: str = "naive") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. tokens: (B, S). Returns (logits, aux_loss);
-    ``aux`` is 0 for the attention families (MoE adds its router losses)."""
+    ``aux`` is 0 for the supported families (MoE adds its router losses).
+    ``impl`` picks every mixer's route, as in :func:`prefill`."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens, frontend_embeds)
     for i in range(cfg.n_layers):
@@ -188,28 +222,63 @@ def _cache_cap(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, w) if w else max_len
 
 
+def _zero_caches(cfg: ModelConfig, batch: int, cap: int, dev: torch.device
+                 ) -> Dict[str, Any]:
+    """Zeroed caches stacked over L: the ring K/V (capacity ``cap``) of the
+    attention layers, the Mamba state of the hybrid's, RWKV6's state."""
+    lead = (cfg.n_layers,)
+    if cfg.attention == "none":
+        return {"rwkv": ssm_lib.init_rwkv_state(cfg, batch, dev, lead)}
+    shape = lead + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    dt = kv_cache_dtype(cfg)
+    layers: Dict[str, Any] = {"kv": attn.KVCache(
+        torch.zeros(shape, dtype=dt, device=dev), torch.zeros(shape, dtype=dt, device=dev),
+        torch.zeros(lead + (batch,), dtype=torch.int32, device=dev))}
+    if cfg.attention == "hybrid":
+        layers["mamba"] = ssm_lib.init_mamba_state(cfg, batch, dev, lead)
+    return layers
+
+
+def _layer_caches(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s caches: views of the stacked ones."""
+    return {name: type(c)(*(t[i] for t in c)) for name, c in layers.items()}
+
+
+def _store(dst: Tuple[torch.Tensor, ...], src: Tuple[torch.Tensor, ...]) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
 def init_decode_state(params: Params, cfg: ModelConfig, batch: int,
                       max_len: int) -> DecodeState:
-    """Allocate per-layer ring caches (stacked over L) on the params' device."""
+    """Allocate per-layer caches (stacked over L) on the params' device: ring
+    K/V caches, and the Mamba or RWKV6 recurrent states."""
     check_supported(cfg)
     dev = params["embed"].device
-    cap = _cache_cap(cfg, max_len)
-    shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-    dt = kv_cache_dtype(cfg)
-    kv = attn.KVCache(torch.zeros(shape, dtype=dt, device=dev),
-                      torch.zeros(shape, dtype=dt, device=dev),
-                      torch.zeros((cfg.n_layers, batch), dtype=torch.int32, device=dev))
-    return DecodeState({"kv": kv}, torch.zeros((batch,), dtype=torch.int32, device=dev))
+    return DecodeState(_zero_caches(cfg, batch, _cache_cap(cfg, max_len), dev),
+                       torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
 def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-                  cache: Dict[str, attn.KVCache]) -> Tuple[torch.Tensor, Dict]:
-    """One-token layer step. x: (B,1,d).  Writes the layer's cache in place."""
+                  cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+    """One-token layer step. x: (B,1,d).  Writes the K/V ring in place and
+    returns the layer's new caches."""
     h = apply_norm(cfg.norm, lp["norm1"], x)
+    if cfg.attention == "none":
+        st = cache["rwkv"]
+        y, st2 = ssm_lib.rwkv_time_mix_recurrent(lp["time_mix"], h, st, cfg)
+        x = x + y
+        h = apply_norm(cfg.norm, lp["norm2"], x)
+        y, last_cm = ssm_lib.rwkv_channel_mix(lp["channel_mix"], h, st.shift_cm)
+        return x + y, {"rwkv": ssm_lib.RWKVState(st2.wkv, st2.shift_tm, last_cm)}
     a_out, kv2 = attn.attention_decode(lp["attn"], h, cache["kv"], cfg, window=_window(cfg))
+    new = {"kv": kv2}
+    if cfg.attention == "hybrid":
+        m_out, new["mamba"] = ssm_lib.mamba_scan(lp["mamba"], h, cache["mamba"], cfg)
+        a_out = 0.5 * (a_out + m_out)
     x = x + a_out
     h = apply_norm(cfg.norm, lp["norm2"], x)
-    return x + apply_mlp(lp["mlp"], h, cfg.activation), {"kv": kv2}
+    return x + apply_mlp(lp["mlp"], h, cfg.activation), new
 
 
 def _kv_into_ring(k: torch.Tensor, v: torch.Tensor, ck: torch.Tensor,
@@ -237,26 +306,33 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             last_only: bool = False) -> Tuple[torch.Tensor, DecodeState]:
     """Run the full prompt, returning (logits, primed DecodeState).
     ``last_only`` computes logits for the final position only (serving path —
-    avoids materializing the (B, S, V) tensor).  ``impl`` picks the prefill
-    attention (``"naive"``, the reference's default, or ``"flash"``, the
-    kernel)."""
+    avoids materializing the (B, S, V) tensor).
+
+    ``impl`` picks the route of every prompt-length mixer: ``"naive"`` is
+    the reference's default math throughout (naive attention, the per-token
+    Mamba scan, RWKV6's chunkwise einsums); ``"flash"`` runs the three
+    kernels (``flash_attention``, the ``mamba`` selective scan, the
+    ``rwkv6`` WKV), one launch of each per layer that has that mixer.  The
+    primed state holds the ring K/V caches, and Hymba's Mamba or RWKV6's
+    recurrent state after the prompt."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens, frontend_embeds)
     b, s_total = x.shape[0], x.shape[1]
     max_len = max_len or s_total
-    cap = _cache_cap(cfg, max(max_len, s_total))
-    dt = kv_cache_dtype(cfg)
-    shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.head_dim)
-    ck = torch.zeros(shape, dtype=dt, device=x.device)
-    cv = torch.zeros(shape, dtype=dt, device=x.device)
+    layers = _zero_caches(cfg, b, _cache_cap(cfg, max(max_len, s_total)), x.device)
     for i in range(cfg.n_layers):
-        x, (k, v) = _seq_layer(cfg, impl, x, layer_params(params["layers"], i))
-        _kv_into_ring(k, v, ck[i], cv[i])
+        x, got = _seq_layer(cfg, impl, x, layer_params(params["layers"], i))
+        dst = _layer_caches(layers, i)
+        for name, c in got.items():
+            if name == "kv":
+                _kv_into_ring(*c, dst["kv"].k, dst["kv"].v)
+            else:
+                _store(dst[name], c)
+    if "kv" in layers:
+        layers["kv"].length.fill_(s_total)
     if last_only:
         x = x[:, -1:]
-    lengths = torch.full((cfg.n_layers, b), s_total, dtype=torch.int32, device=x.device)
-    state = DecodeState({"kv": attn.KVCache(ck, cv, lengths)},
-                        torch.full((b,), s_total, dtype=torch.int32, device=x.device))
+    state = DecodeState(layers, torch.full((b,), s_total, dtype=torch.int32, device=x.device))
     return _logits(params, cfg, x), state
 
 
@@ -266,12 +342,13 @@ def decode_step(params: Params, cfg: ModelConfig, state: DecodeState,
     ``state`` are written in place (the new state shares them), so ``state``
     is not reusable as the old state."""
     x = params["embed"][token.long()][:, None, :]                    # (B,1,d)
-    kv = state.layers["kv"]
-    lengths = []
     for i in range(cfg.n_layers):
-        cache = {"kv": attn.KVCache(kv.k[i], kv.v[i], kv.length[i])}
+        cache = _layer_caches(state.layers, i)
         x, new = _decode_layer(cfg, x, layer_params(params["layers"], i), cache)
-        lengths.append(new["kv"].length)
+        for name, c in new.items():
+            if name == "kv":                  # K/V went into the ring in place
+                cache["kv"].length.copy_(c.length)
+            else:
+                _store(cache[name], c)
     logits = _logits(params, cfg, x)[:, 0]
-    new_kv = attn.KVCache(kv.k, kv.v, torch.stack(lengths))
-    return logits, DecodeState({"kv": new_kv}, state.step + 1, state.cross_kv)
+    return logits, DecodeState(state.layers, state.step + 1, state.cross_kv)

@@ -67,9 +67,17 @@ def test_port_files_exist():
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/launch/steps.py",
                  "src/repro_torch/launch/serve.py",
-                 "src/repro_torch/launch/scheduler.py"):
+                 "src/repro_torch/launch/scheduler.py",
+                 "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/kernels/mamba/kernel.py",
+                 "src/repro_torch/kernels/mamba/ops.py",
+                 "src/repro_torch/kernels/mamba/ref.py",
+                 "src/repro_torch/kernels/rwkv6/kernel.py",
+                 "src/repro_torch/kernels/rwkv6/ops.py",
+                 "src/repro_torch/kernels/rwkv6/ref.py"):
         assert want in names
-    for cu in ("pairwise_rank", "select_topk", "fleet_state", "flash_attention"):
+    for cu in ("pairwise_rank", "select_topk", "fleet_state", "flash_attention",
+               "mamba", "rwkv6"):
         assert (ROOT / f"src/repro_torch/csrc/{cu}.cu").is_file()
     assert (ROOT / "src/repro_torch/fl/traces/data/sample_livelab.csv").is_file()
 
@@ -209,8 +217,6 @@ def test_lm_serving_refuses_missing_card(device):
 
 
 @pytest.mark.parametrize("arch,slice_name", [
-    ("rwkv6-3b", "SSM slice"),
-    ("hymba-1.5b", "SSM slice"),
     ("olmoe-1b-7b", "MoE"),
     ("phi3.5-moe", "MoE"),
     ("whisper-medium", "encoder-decoder"),
@@ -232,3 +238,80 @@ def test_unported_lm_families_are_refused(arch, slice_name):
         T.forward(yi, cfg, tokens)
     with pytest.raises(NotImplementedError, match=slice_name):
         serve(arch, smoke=True, batch=1, prompt_len=4, gen=1, device="cpu")
+
+
+def _scan_args(dtype=torch.float32, device="cpu"):
+    b, t, inner, state = 1, 3, 4, 2
+    shapes = ((b, t, inner), (b, t, inner), (b, t, state), (b, t, state),
+              (inner, state), (b, inner, state))
+    return [torch.zeros(sh, dtype=dtype, device=device) for sh in shapes]
+
+
+def _wkv_args(dtype=torch.float32, device="cpu"):
+    b, t, h, n = 1, 3, 2, 4
+    shapes = ((b, t, h, n),) * 4 + ((h, n), (b, h, n, n))
+    return [torch.zeros(sh, dtype=dtype, device=device) for sh in shapes]
+
+
+def _ssm_wrapper(name):
+    from repro_torch.kernels.mamba.kernel import selective_scan_cuda
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+
+    return {"mamba": (selective_scan_cuda, _scan_args),
+            "rwkv6": (wkv6_cuda, _wkv_args)}[name]
+
+
+@pytest.mark.parametrize("name", ["mamba", "rwkv6"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16, torch.float16])
+def test_ssm_kernel_wrappers_refuse_other_dtypes(name, dtype):
+    fn, args = _ssm_wrapper(name)
+    with pytest.raises(ValueError, match="float32"):
+        fn(*args(dtype))
+    mixed = args()
+    mixed[1] = mixed[1].to(dtype)
+    with pytest.raises(ValueError, match="float32"):
+        fn(*mixed)
+
+
+@pytest.mark.parametrize("name", ["mamba", "rwkv6"])
+def test_ssm_kernel_wrappers_refuse_other_devices(name):
+    fn, args = _ssm_wrapper(name)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fn(*args(device="meta"))
+    mixed = args()
+    mixed[0] = mixed[0].to("meta")
+    with pytest.raises(ValueError, match="is on"):
+        fn(*mixed)
+    launches = fn.launches
+    fn(*args())                       # the CPU takes the plain version
+    assert fn.launches == launches
+
+
+@pytest.mark.parametrize("name", ["mamba", "rwkv6"])
+def test_ssm_kernel_wrappers_refuse_malformed_shapes(name):
+    fn, args = _ssm_wrapper(name)
+    bad = args()
+    bad[-1] = bad[-1][..., :1]        # the state's last dimension cut
+    with pytest.raises(ValueError, match="shape"):
+        fn(*bad)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b"])
+def test_ssm_families_run_on_the_cpu_when_asked(arch):
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_model_config(arch, smoke=True)
+    T.check_supported(cfg)
+    params = T.init_params(0, cfg, "cpu")
+    assert all(t.device.type == "cpu" for t in _leaves(params))
+    logits, _ = T.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int64), impl="flash")
+    assert logits.shape == (1, 4, cfg.vocab_size)

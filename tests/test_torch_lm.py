@@ -11,7 +11,13 @@ weights are carried across with ``repro_torch.convert``.  Tolerances:
   another order);
 * whole models (``forward``, ``prefill``, ``decode_step``, the loss): 1e-4
   on the logits, the tolerance ``tests/test_decode_consistency.py`` uses
-  for the reference's own prefill + decode against its forward.
+  for the reference's own prefill + decode against its forward; the
+  recurrent states a prefill leaves (RWKV6's, Hymba's Mamba heads') within
+  1e-4 * max(1, max |ref|).
+
+The SSM and hybrid families (rwkv6-3b, hymba-1.5b) run both prefill routes:
+``impl="naive"`` (the reference's default math) and ``impl="flash"`` (the
+kernels' route, whose ops take their plain versions on the CPU).
 """
 import dataclasses
 
@@ -40,6 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 ATTN_ARCHS = ["yi-6b", "h2o-danube-3-4b", "minitron-4b", "gemma-7b"]
+SSM_ARCHS = ["rwkv6-3b", "hymba-1.5b"]
 
 
 def _np(x):
@@ -231,18 +238,21 @@ def _models(arch, seed=7, **overrides):
     return cfg, tcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + SSM_ARCHS)
 def test_forward_prefill_decode_match_the_reference(arch):
     cfg, tcfg, jp, tp = _models(arch)
-    # past the smoke window (64) for the sliding-window model
+    # past the smoke window (64) for the sliding-window models; RWKV6's
+    # prefill of 128 tokens takes its chunked form (64-token chunks)
     s = 80 if cfg.window else 20
+    half = s - 6
+    if arch == "rwkv6-3b":
+        s, half = 136, 128
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
     j_forward, j_prefill, j_decode = _jit(cfg)
     want, _ = j_forward(jp, jnp.asarray(tok))
     got, aux = T.forward(tp, tcfg, _t(tok))
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4, rtol=0)
     assert float(aux) == 0.0
-    half = s - 6
     jlog, jst = j_prefill(jp, jnp.asarray(tok[:, :half]), s)
     jsteps = []
     for t in range(half, s):
@@ -324,7 +334,7 @@ def test_loss_matches():
 
 
 def test_init_params_layout_matches_the_reference():
-    for arch in ATTN_ARCHS:
+    for arch in ATTN_ARCHS + SSM_ARCHS:
         cfg = jax_config(arch, smoke=True)
         want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
                             JT.init_params(jax.random.PRNGKey(0), cfg))
@@ -332,3 +342,71 @@ def test_init_params_layout_matches_the_reference():
         got = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")),
                            got)
         assert got == want, arch
+
+
+def _close_scaled(got, want, tol=1e-4):
+    want = _np(want)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=tol * max(1.0, float(np.abs(want).max())), rtol=0)
+
+
+@pytest.mark.parametrize("arch,prompt", [("rwkv6-3b", 128), ("hymba-1.5b", 70)])
+def test_ssm_prefill_states_and_state_conversion(arch, prompt):
+    """The recurrent states a prefill leaves equal the reference's, on both
+    routes; the reference's primed state, carried across, decodes as the
+    port's own; ``forward(impl="flash")`` equals the reference's forward."""
+    cfg, tcfg, jp, tp = _models(arch, seed=9)
+    n = prompt + 4
+    tok = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, n)).astype(np.int32)
+    j_forward, j_prefill, j_decode = _jit(cfg)
+    want, _ = j_forward(jp, jnp.asarray(tok))
+    got, _ = T.forward(tp, tcfg, _t(tok), impl="flash")
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4, rtol=0)
+    _, jst = j_prefill(jp, jnp.asarray(tok[:, :prompt]), n)
+    names = sorted(jst.layers)
+    assert names == (["rwkv"] if arch == "rwkv6-3b" else ["kv", "mamba"])
+    for impl in ("naive", "flash"):
+        _, tst = T.prefill(tp, tcfg, _t(tok[:, :prompt]), max_len=n, impl=impl)
+        assert sorted(tst.layers) == names
+        for name in names:
+            for g, w in zip(tst.layers[name], jst.layers[name]):
+                assert tuple(g.shape) == w.shape
+                _close_scaled(g, w)
+    st = decode_state_from_numpy(jax.tree.map(np.asarray, jst), "cpu")
+    assert sorted(st.layers) == names
+    for t in range(prompt, n):
+        jl, jst = j_decode(jp, jst, jnp.asarray(tok[:, t]))
+        tl, st = T.decode_step(tp, tcfg, st, _t(tok[:, t]))
+        np.testing.assert_allclose(tl.numpy(), _np(jl), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(tl.numpy(), _np(want[:, t]), atol=1e-4, rtol=0)
+    for name in names:
+        for g, w in zip(st.layers[name], jst.layers[name]):
+            _close_scaled(g, w)
+
+
+def test_bf16_ssm_models_prefill_and_decode():
+    """bf16 weights (the serving dtype): every route runs, keeps the cache
+    dtypes, and the kernels' route agrees with the reference's default math
+    within 4 bf16 ulps of the logits' scale (the two routes' fp32 results
+    round to bf16 at the layer outputs, and a flipped rounding carries
+    through the next layer)."""
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(get_model_config(arch, smoke=True), dtype="bfloat16")
+        p = T.init_params(3, cfg, "cpu")
+        tok = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 64)))
+        lg = {}
+        for impl in ("naive", "flash"):
+            lg[impl], st = T.prefill(p, cfg, tok, max_len=70, impl=impl, last_only=True)
+            for name, c in st.layers.items():
+                assert c[0].shape[:2] == (cfg.n_layers, 2), name
+            step, _ = T.decode_step(p, cfg, st, tok[:, -1])
+            assert bool(torch.isfinite(step.float()).all())
+        if arch == "rwkv6-3b":
+            assert st.layers["rwkv"].wkv.dtype == torch.float32
+            assert st.layers["rwkv"].shift_tm.dtype == torch.bfloat16
+        else:
+            assert st.layers["mamba"].conv.dtype == torch.bfloat16
+        scale = float(lg["naive"].float().abs().max())
+        assert float((lg["naive"].float() - lg["flash"].float()).abs().max()) \
+            <= 2.0 ** -6 * scale

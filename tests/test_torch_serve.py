@@ -5,8 +5,10 @@
 * The step functions: prefill by the kernel route (the port's default) and
   teacher-forced decode steps give the reference's logits from the same
   weights (1e-4, as ``tests/test_decode_consistency.py``).
-* ``ContinuousBatcher``: every request gets the greedy tokens the same
-  request gets decoded alone (exactly), and the reference's batcher's tokens
+* ``ContinuousBatcher`` (the attention, SSM and hybrid families): every
+  request gets the greedy tokens the same request gets decoded alone
+  (exactly), so no slot inherits the recurrent state of the request before
+  it, and the reference's batcher's tokens
   wherever the reference's top-2 logit gap exceeds 1e-4 — past the first
   step whose gap is that close, fp32 sums in another order may pick the
   other token, and the rest of the request may differ.
@@ -40,7 +42,10 @@ def _models(arch, seed=0):
         jax.tree.map(np.asarray, jp), "cpu")
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b"])
+LM_ARCHS = ["yi-6b", "h2o-danube-3-4b", "rwkv6-3b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_serve_runs_greedy_on_the_cpu(arch, capsys):
     stats = serve(arch, smoke=True, batch=2, prompt_len=70, gen=5, temperature=0.0,
                   device="cpu")
@@ -56,7 +61,7 @@ def test_serve_samples_with_temperature():
     assert stats["decode_tok_per_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_prefill_and_teacher_forced_decode_match_the_reference(arch):
     cfg, tcfg, jp, tp = _models(arch, seed=2)
     shape = dataclasses.replace(get_shape("decode_32k"), seq_len=96)
@@ -103,7 +108,7 @@ def _reference_gaps(cfg, params, prompt, max_new):
     return out, gaps
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_batcher_matches_requests_run_alone_and_the_reference(arch):
     cfg, tcfg, jp, tp = _models(arch, seed=4)
     rng = np.random.default_rng(4)
@@ -141,3 +146,24 @@ def test_batcher_slot_reset_zeroes_the_slot():
     batcher._reset_slot_state(0)
     assert float(kv.k[:, 0].abs().sum()) == 0.0 and float(kv.v[:, 0].abs().sum()) == 0.0
     assert int(kv.length[:, 0].abs().sum()) == 0 and int(batcher.state.step[0]) == 0
+
+
+@pytest.mark.parametrize("arch,names", [("rwkv6-3b", ["rwkv"]),
+                                        ("hymba-1.5b", ["kv", "mamba"])])
+def test_batcher_slot_reset_zeroes_the_recurrent_state(arch, names):
+    """Every per-slot leaf (WKV state, both token shifts; K/V, Mamba state
+    and conv buffer) is zeroed for the new request; the other slot keeps
+    its own."""
+    _, tcfg, _, tp = _models(arch, seed=1)
+    batcher = ContinuousBatcher(tcfg, tp, batch_slots=2, max_len=16, device="cpu")
+    for rid in range(2):
+        batcher.submit(Request(rid=rid, prompt=np.array([1, 2, 3], np.int32), max_new=2))
+    batcher.step()
+    leaves = [leaf for name in names for leaf in batcher.state.layers[name]]
+    assert sorted(batcher.state.layers) == names
+    assert all(bool(leaf[:, 0].abs().sum() > 0) for leaf in leaves)
+    kept = [leaf[:, 1].clone() for leaf in leaves]
+    batcher._reset_slot_state(0)
+    assert all(float(leaf[:, 0].abs().sum()) == 0.0 for leaf in leaves)
+    assert all(torch.equal(leaf[:, 1], k) for leaf, k in zip(leaves, kept))
+    assert int(batcher.state.step[0]) == 0 and int(batcher.state.step[1]) == 1
