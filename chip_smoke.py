@@ -23,8 +23,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    ``flash_attention`` in fp32 and bf16 over S in {1, 7, 128, 129, 1000}
    x G in {1, 4, 5, 8} x Dh in {64, 120, 128} x causal/bidirectional x
    window in {None, 64, 1024}, ten cases at S = 4096 and 8192 (windows up
-   to 4096), gemma-7b's Dh=256 (G=1, S in {129, 1000}) and path 6's own
-   shapes (Yi-6B's prefill, h2o-danube's 5000-token windowed prefill);
+   to 4096), gemma-7b's Dh=256 (G=1, S in {129, 1000}), the tensor-core
+   kernel's row layouts (G in {16, 64} at S in {7, 129}; G=5 with windows
+   of 1, 17 and 63 keys; Dh=120 at S in {65, 200, 1001}) and path 6's own
+   shapes (Yi-6B's prefill, h2o-danube's 5000-token windowed prefill), the
+   largest error reported by route (bf16 with Dh <= 128 takes the
+   tensor-core kernel, the rest the CUDA-core one);
    ``mamba`` over T in {1, 2, 7, 64, 65, 1000} x inner in {64, 100, 1600} x
    state in {8, 16} x B in {1, 4} x zero and random h0, every lane split of
    the state (state 1 to 64), path 7's own shape (Hymba's prefill: B=4,
@@ -41,7 +45,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    key, for ``flash_attention`` ``scaled_dot_product_attention`` (``is_causal``,
    or a boolean causal-and-window mask) at Yi-6B's prefill (B=4, S=1024),
    S=8192 and S=32768, h2o-danube's (window 4096; S=5000 and 8192) and
-   Hymba's attention (window 1024); ``mamba`` and ``rwkv6`` at path 7's
+   Hymba's attention (window 1024; path 7's B=4, S=2048 and B=1, S=8192);
+   ``mamba`` and ``rwkv6`` at path 7's
    shapes and at T=8192 (B=1), beside the plain version and the bound (no
    one PyTorch call computes either);
 4. the CPU and the card agree: one round of every policy at 50 devices picks
@@ -70,21 +75,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    batched event loop against its sequential oracle;
 10. path 6, LM serving at full width and depth in bf16: ``serve`` on Yi-6B
     (batch 4, prompt 1024, 32 new tokens; one ``flash_attention`` launch per
-    layer), on h2o-danube-3-4b (batch 1, prompt 5000, past its 4096 window,
-    16 new tokens) and a ``ContinuousBatcher`` on Yi-6B (4 slots, 8
+    layer, every one on the tensor-core kernel), on h2o-danube-3-4b (batch
+    1, prompt 5000, past its 4096 window, 16 new tokens) and a
+    ``ContinuousBatcher`` on Yi-6B (4 slots, 8
     requests, prompts of 16-128 tokens, 16 new tokens each; prompts go token
     by token through decode, so no attention kernel launches), then one
     Yi-6B serve call under ``torch.profiler``;
 11. path 7, SSM serving at full published width and depth in bf16:
     ``serve`` on Hymba-1.5B (batch 4, prompt 2048, past its 1024 window, 32
-    new tokens; exactly 32 ``mamba`` and 32 ``flash_attention`` launches),
+    new tokens; exactly 32 ``mamba`` and 32 ``flash_attention`` launches,
+    all of the latter on the tensor-core kernel),
     on RWKV6-3B (batch 4, prompt 1024, 32 new tokens; exactly 32 ``rwkv6``
     launches) and a ``ContinuousBatcher`` on RWKV6-3B (4 slots, 8 requests,
     prompts of 16-128 tokens, 16 new tokens each; no kernel launches), then
-    one serve call of each model (8 new tokens) under ``torch.profiler``;
-12. a ``kernels`` line (seven entries: every TPU kernel of the repo, with
-    ``pairwise_rank``'s forward and gradient apart), then the card line,
-    then ``{"ok": true, ...}``.
+    one serve call of each model (8 new tokens) under ``torch.profiler``
+    (the profiles report each flash kernel's device time apart);
+12. a ``summary`` line (each step's status, its largest error and its
+    device idle shares; printed also when a step fails, before the error),
+    a ``kernels`` line (seven entries: every TPU kernel of the repo, with
+    ``pairwise_rank``'s forward and gradient apart, each with its times and
+    launches; ``flash_attention`` adds the route its main shape took), then
+    the card line, then
+    ``{"ok": true, ...}``.  The last four lines stay within ~12 KB, so that
+    a tool that keeps only the end of the output keeps them.
 
 Every kernel wrapper counts its launches.  Each path is driven with every
 count set to 0 just before it and read just after; launches made to compare
@@ -120,8 +133,10 @@ The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -136,8 +151,43 @@ H100_BYTES_PER_S = 3.35e12   # published HBM3 bandwidth, SXM
 HIDDEN = 64                  # the Q-net's hidden width (core/qnet.py)
 
 
+# The summary line: each step's status, its largest error and the device
+# idle shares its profiles measured.  Every other number is in the full lines
+# above and in the kernels line.
+_STEPS: dict = {}            # step name -> {"status": ..., "max_err": x, "idle": [...]}
+_CURRENT: list = []
+
+
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
+    if _CURRENT:
+        summary = _STEPS[_CURRENT[-1]]
+        for key, val in kw.items():
+            if "err" in key and isinstance(val, dict):     # errors by route
+                summary[key] = val
+            elif "err" in key and isinstance(val, (int, float)):
+                summary["max_err"] = max(summary.get("max_err", 0.0), float(val))
+            elif key == "device_idle_share":
+                summary.setdefault("idle", []).append(float(f"{val:.4g}"))
+
+
+@contextlib.contextmanager
+def step(name):
+    """A step of main(): "fail" until its body returns."""
+    _STEPS[name] = {"status": "fail"}
+    _CURRENT.append(name)
+    try:
+        yield
+    finally:
+        _CURRENT.pop()
+    _STEPS[name]["status"] = "pass"
+
+
+def summary_line(ok, error=None) -> str:
+    out = {"ok": ok, "steps": _STEPS}
+    if error is not None:
+        out["error"] = repr(error)[:400]
+    return json.dumps({"summary": out}, separators=(",", ":"))
 
 
 def require(ok, what="") -> None:
@@ -264,10 +314,15 @@ def _wrappers():
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["flash_attention"].mma_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches by wrapper; ``flash_attention_mma`` counts those of
+    ``flash_attention``'s launches that took the tensor-core kernel."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    counts["flash_attention_mma"] = _wrappers()["flash_attention"].mma_launches
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -757,6 +812,18 @@ def device_profile(torch, fn):
     averages = prof.key_averages()
     rows = [e for e in averages if e.device_type == DeviceType.CUDA]
     return wall, rows, lambda e: getattr(e, "self_device_time_total", 0.0), averages
+
+
+def kernel_times(rows, dev_us, part):
+    """{kernel name: [device ms, launches]} over the profiled kernels whose
+    name contains ``part`` (``flash_fwd`` matches both flash kernels)."""
+    out = {}
+    for e in rows:
+        m = re.search(r"\w*%s\w*" % re.escape(part), e.key)
+        if m:
+            ms, n = out.get(m.group(0), (0.0, 0))
+            out[m.group(0)] = [ms + dev_us(e) / 1e3, n + e.count]
+    return out
 
 
 def phase_il_profile(torch, demos, q):
@@ -1249,8 +1316,10 @@ FA_MAIN_CASES = {
 def phase_flash_vs_plain(torch):
     """The kernel against its plain version over sequence lengths (ragged
     ones too), GQA group sizes, head widths (gemma-7b's Dh=256 too), masks,
-    both input types and path 6's own shapes."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    both input types and path 6's own shapes; bf16 with Dh <= 128 takes the
+    tensor-core kernel, so its row layout gets cases of its own: G of 16 and
+    64, G=5 with windows inside one 64-key tile, Dh=120 at ragged S."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
 
     masks = [(True, None), (False, None), (True, 64), (False, 64), (True, 1024),
              (False, 1024)]
@@ -1267,8 +1336,19 @@ def phase_flash_vs_plain(torch):
     # gemma-7b's layout: 16 query heads over 16 KV heads (G=1), Dh=256
     cases += [dict(b=b, s=s, kv=16, g=1, dh=256, causal=True, window=None)
               for b, s in ((2, 129), (1, 1000))]
+    # the tensor-core kernel's rows: 4 and 1 positions a CTA (G = 16, 64)
+    cases += [dict(b=2, s=s, kv=2, g=g, dh=dh, causal=c, window=w)
+              for s in (7, 129) for g in (16, 64) for dh in (64, 120, 128)
+              for c, w in masks[:3]]
+    # G=5 (12 positions, 60 of 64 rows) with windows inside one key tile
+    cases += [dict(b=1, s=s, kv=2, g=5, dh=64, causal=c, window=w)
+              for s in (129, 1000) for w in (1, 17, 63) for c in (True, False)]
+    # Dh=120 (padded to 128) at ragged S
+    cases += [dict(b=1, s=s, kv=2, g=g, dh=120, causal=c, window=w)
+              for s in (65, 200, 1001) for g in (4, 8)
+              for c, w in ((True, None), (True, 100), (False, None))]
     cases += [dict(c, label=label) for label, c in FA_MAIN_CASES.items()]
-    errs, summary = {}, []
+    errs, counts, summary = {}, {}, []
     for i, c in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(torch, c["b"], c["s"], c["kv"] * c["g"], c["kv"],
@@ -1281,21 +1361,23 @@ def phase_flash_vs_plain(torch):
                 ok = bool((err <= FA_TOL32).all())
             else:
                 ok = bool((err <= FA_ULP_BF16 * ref.abs() + FA_TOL32).all())
+            key = f"{str(dtype).replace('torch.', '')}/{flash_route(dtype, c['dh'])}"
             require(got.shape == q.shape and got.dtype == dtype and ok,
-                    f"flash_attention {c} {dtype}: max err {float(err.max())}")
-            key = str(dtype).replace("torch.", "")
+                    f"flash_attention {c} {key}: max err {float(err.max())}")
             errs[key] = max(errs.get(key, 0.0), float(err.max()))
+            counts[key] = counts.get(key, 0) + 1
             if c["s"] >= 1000 or c["dh"] > 128:
                 summary.append([c.get("label"), c["b"], c["s"], c["kv"], c["g"], c["dh"],
                                 c["causal"], c["window"], key, float(err.max())])
         del q, k, v, got, ref, err
     torch.cuda.empty_cache()
     emit(phase="kernel_vs_plain", kernel="flash_attention", cases=2 * len(cases),
+         cases_by_route=counts,
          tolerance={"float32": f"{FA_TOL32} abs",
                     "bfloat16": f"{FA_ULP_BF16}*|ref| + {FA_TOL32}"},
          max_abs_err=errs,
          results_s_ge_1000_or_dh_gt_128=[["main_path", "b", "s", "kv", "g", "dh",
-                                          "causal", "window", "dtype", "max_abs_err"]]
+                                          "causal", "window", "dtype/route", "max_abs_err"]]
          + summary)
     return errs
 
@@ -1307,7 +1389,7 @@ def phase_flash_timings(torch, card):
     its largest difference from the kernel is printed beside its time."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
 
     rows = {}
     for label, b, s, h, kv, dh, window, dtype, plain in (
@@ -1317,6 +1399,7 @@ def phase_flash_timings(torch, card):
             ("yi_s32768", 1, 32768, 32, 4, 128, None, torch.bfloat16, False),
             ("danube_prefill", 1, 5000, 32, 8, 120, 4096, torch.bfloat16, True),
             ("danube_s8192", 1, 8192, 32, 8, 120, 4096, torch.bfloat16, True),
+            ("hymba_prefill", 4, 2048, 25, 5, 64, 1024, torch.bfloat16, True),
             ("hymba_attn_s8192", 1, 8192, 25, 5, 64, 1024, torch.bfloat16, True)):
         q, k, v = flash_inputs(torch, b, s, h, kv, dh, dtype, seed=s + h)
         ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True,
@@ -1342,7 +1425,8 @@ def phase_flash_timings(torch, card):
                           .float()).abs().max())
         bound, bound_by = flash_bound_ms(b, s, h, kv, dh, True, window, q.element_size())
         rows[label] = dict(b=b, s=s, h=h, kv=kv, dh=dh, window=window,
-                           dtype=str(dtype).replace("torch.", ""), ms=ms,
+                           dtype=str(dtype).replace("torch.", ""),
+                           route=flash_route(dtype, dh), ms=ms,
                            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                            library_ms=lib_ms)
         emit(phase="timing", kernel="flash_attention", shape=label, card=card,
@@ -1452,17 +1536,21 @@ def phase_serving_path(torch):
                                             ("h2o-danube-3-4b", "h2o-danube-3-4b", 1, 5000, 16)):
         cfg = get_model_config(arch)
         before = flash_attention_cuda.launches
+        before_mma = flash_attention_cuda.mma_launches
         torch.cuda.reset_peak_memory_stats()
         stats = serve(arch, smoke=False, batch=batch, prompt_len=prompt, gen=gen,
                       verbose=False, device="cuda")
         launched = flash_attention_cuda.launches - before
+        mma = flash_attention_cuda.mma_launches - before_mma
         require(all(math.isfinite(v) and v > 0 for v in stats.values()), stats)
         require(launched == cfg.n_layers, f"{arch}: {launched} flash launches")
+        require(mma == launched, f"{arch}: {mma} of {launched} bf16 prefill launches "
+                                 "on the tensor-core kernel")
         runs[label] = launched
         emit(phase="serve", path="lm_serving", model=arch, layers=cfg.n_layers,
              params=cfg.param_count(), batch=batch, prompt=prompt, gen=gen, **stats,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-             flash_attention_launches=launched,
+             flash_attention_launches=launched, flash_attention_mma_launches=mma,
              ring_wraps=bool(cfg.window and prompt > cfg.window))
         torch.cuda.empty_cache()
 
@@ -1505,13 +1593,13 @@ def phase_serve_profile(torch):
         torch, lambda: serve("yi-6b", smoke=False, batch=4, prompt_len=1024, gen=8,
                              verbose=False, device="cuda"))
     busy_s = sum(dev_us(e) for e in rows) / 1e6
-    fa_s = sum(dev_us(e) for e in rows if "flash_fwd_kernel" in e.key) / 1e6
+    flash = kernel_times(rows, dev_us, "flash_fwd")
     top = sorted(rows, key=dev_us, reverse=True)[:8]
     emit(phase="profile", path="lm_serving", model="yi-6b", wall_s=wall,
          device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
          device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
-         flash_attention_device_s=fa_s,
-         flash_attention_launches=sum(e.count for e in rows if "flash_fwd_kernel" in e.key),
+         flash_attention_device_s=sum(ms for ms, _ in flash.values()) / 1e3,
+         flash_attention_launches=sum(n for _, n in flash.values()), flash_kernels=flash,
          top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
     torch.cuda.empty_cache()
 
@@ -1750,7 +1838,8 @@ def phase_ssm_serving_path(torch):
     reset_counts()                                # every count to 0
     runs = {}
     for arch, prompt, want in (
-            ("hymba-1.5b", 2048, {"mamba": 32, "flash_attention": 32}),
+            ("hymba-1.5b", 2048, {"mamba": 32, "flash_attention": 32,
+                                  "flash_attention_mma": 32}),
             ("rwkv6-3b", 1024, {"rwkv6": 32})):
         cfg = get_model_config(arch)
         before = read_counts()
@@ -1813,8 +1902,8 @@ def phase_ssm_serve_profile(torch):
         emit(phase="profile", path="ssm_serving", model=arch, wall_s=wall,
              device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
              device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
-             port_kernels={n: [sum(dev_us(e) for e in rows if n in e.key) / 1e3,
-                               sum(e.count for e in rows if n in e.key)] for n in names},
+             port_kernels={k: v for n in names
+                           for k, v in kernel_times(rows, dev_us, n).items()},
              top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
         torch.cuda.empty_cache()
 
@@ -1834,6 +1923,33 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
+    card = card_line()
+    try:
+        kernels = run_phases(torch, card)
+    except BaseException as e:
+        print(summary_line(False, e), flush=True)
+        raise
+    print(summary_line(True), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def ptxas_lines(log):
+    """Registers, shared memory and spills, each under its kernel's name."""
+    out = []
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            out.append(ln.split("Function properties for")[-1].strip())
+        elif "Used" in ln or "spill" in ln:
+            out.append(ln.strip())
+    return out
+
+
+def run_phases(torch, card):
     from repro_torch.kernels.flash_attention import kernel as flash_attention_kernel
     from repro_torch.kernels.fleet_state import kernel as fleet_state_kernel
     from repro_torch.kernels.mamba import kernel as mamba_kernel
@@ -1842,74 +1958,87 @@ def main() -> int:
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
 
     # ---- 1: device and build -------------------------------------------
-    card = card_line()
-    name = torch.cuda.get_device_name(0)
-    emit(phase="device", name=name, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY,
-                 fleet_state_kernel.LIBRARY, flash_attention_kernel.LIBRARY,
-                 mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
-        built = list(pool.map(lambda lib: lib.build(), libraries))
-    seconds = time.perf_counter() - t0
-    for lib, path in zip(libraries, built):
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-                 if "Used" in ln or "spill" in ln]
-        emit(phase="build", kernel=lib.name, seconds=seconds,
-             library=str(path.relative_to(ROOT)), ptxas=ptxas)
+    with step("build"):
+        emit(phase="device", name=torch.cuda.get_device_name(0),
+             count=torch.cuda.device_count(), torch=torch.__version__,
+             cuda=torch.version.cuda, nvidia_smi=card)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY,
+                     fleet_state_kernel.LIBRARY, flash_attention_kernel.LIBRARY,
+                     mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
+            built = list(pool.map(lambda lib: lib.build(), libraries))
+        seconds = time.perf_counter() - t0
+        for lib, path in zip(libraries, built):
+            emit(phase="build", kernel=lib.name, seconds=seconds,
+                 library=str(path.relative_to(ROOT)), ptxas=ptxas_lines(lib.build_log))
 
     # ---- 2-3: kernels against their plain versions, timings -----------
-    max_err = phase_kernel_vs_plain(torch)
-    timings = phase_timings(torch, card)
-    pr_err_fwd, pr_err_bwd = phase_pairwise_vs_plain(torch)
-    pr_timings = phase_pairwise_timings(torch, card)
-    t0 = time.perf_counter()
-    big = large_trace()
-    emit(phase="large_trace", devices=big.n_devices, segments=big.n_segments,
-         seconds=time.perf_counter() - t0)
-    fs_err = phase_fleet_state_vs_plain(torch, big)
-    fs_timings = phase_fleet_state_timings(torch, card, big)
-    fa_err = phase_flash_vs_plain(torch)
-    fa_timings = phase_flash_timings(torch, card)
-    scan_err = phase_scan_vs_plain(torch)
-    wkv_err = phase_wkv_vs_plain(torch)
-    ssm_timings = phase_ssm_timings(torch, card)
+    with step("select_topk"):
+        max_err = phase_kernel_vs_plain(torch)
+        timings = phase_timings(torch, card)
+    with step("pairwise_rank"):
+        pr_err_fwd, pr_err_bwd = phase_pairwise_vs_plain(torch)
+        pr_timings = phase_pairwise_timings(torch, card)
+    with step("fleet_state"):
+        t0 = time.perf_counter()
+        big = large_trace()
+        emit(phase="large_trace", devices=big.n_devices, segments=big.n_segments,
+             seconds=time.perf_counter() - t0)
+        fs_err = phase_fleet_state_vs_plain(torch, big)
+        fs_timings = phase_fleet_state_timings(torch, card, big)
+    with step("flash_attention"):
+        fa_err = phase_flash_vs_plain(torch)
+        fa_timings = phase_flash_timings(torch, card)
+    with step("mamba_rwkv6"):
+        scan_err = phase_scan_vs_plain(torch)
+        wkv_err = phase_wkv_vs_plain(torch)
+        ssm_timings = phase_ssm_timings(torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
-    phase_cpu_agreement(torch)
-    phase_cpu_agreement_policies(torch, small_data(4000, 50))
-    phase_cpu_agreement_il(torch)
-    phase_cpu_agreement_async(torch)
-    phase_cpu_agreement_lm(torch)
-    phase_full_width_agreement(torch)
+    with step("cpu_vs_card"):
+        phase_cpu_agreement(torch)
+        phase_cpu_agreement_policies(torch, small_data(4000, 50))
+        phase_cpu_agreement_il(torch)
+        phase_cpu_agreement_async(torch)
+        phase_cpu_agreement_lm(torch)
+    with step("full_width"):
+        phase_full_width_agreement(torch)
 
     # ---- 5-11: the paths, each with its own launch counts --------------
     t0 = time.perf_counter()
     data = small_data(64_000, 1000)
     emit(phase="main_data", samples=64_000, clients=1000,
          seconds=time.perf_counter() - t0)
-    sync_counts, srv, policy = phase_main_path(torch, data)
-    phase_profile(torch, srv, policy)
-    il_counts, demos, q = phase_il_path(torch, data)
-    phase_il_profile(torch, demos, q)
-    phase_baselines(torch, data)
-    trace_counts = phase_trace_path(torch, data)
-    async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
-    phase_async_profile(torch, async_srv, async_policy)
-    phase_async_oracle(torch, data)
-    lm_counts, lm_runs = phase_serving_path(torch)
-    phase_serve_profile(torch)
-    ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
-    phase_ssm_serve_profile(torch)
+    with step("path1_sync"):
+        sync_counts, srv, policy = phase_main_path(torch, data)
+        phase_profile(torch, srv, policy)
+    with step("path2_il"):
+        il_counts, demos, q = phase_il_path(torch, data)
+        phase_il_profile(torch, demos, q)
+    with step("path3_baselines"):
+        phase_baselines(torch, data)
+    with step("path4_trace"):
+        trace_counts = phase_trace_path(torch, data)
+    with step("path5_async"):
+        async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
+        phase_async_profile(torch, async_srv, async_policy)
+        phase_async_oracle(torch, data)
+    with step("path6_lm"):
+        lm_counts, lm_runs = phase_serving_path(torch)
+        phase_serve_profile(torch)
+    with step("path7_ssm"):
+        ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
+        phase_ssm_serve_profile(torch)
 
-    # ---- 12: kernels line, card line, result ---------------------------
+    # ---- 12: kernels line ----------------------------------------------
     main_shape = timings["main_probe_set"]
     il = pr_timings["il_b16_n30"]
     fs_main = fs_timings["main_week"]
-    print(json.dumps({"kernels": [
+    fa_main = fa_timings["yi_prefill"]
+    return [
         kernel_entry("select_topk", "src/repro_torch/csrc/select_topk.cu",
                      "src/repro/kernels/select_topk/kernel.py:98",
                      sync_counts["select_topk"], max_err, main_shape,
@@ -1932,12 +2061,11 @@ def main() -> int:
                                   for k, r in async_runs.items()}}),
         dict(kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                           "src/repro/kernels/flash_attention/kernel.py:93",
-                          lm_counts["flash_attention"], fa_err["bfloat16"],
-                          fa_timings["yi_prefill"],
-                          {k: fa_timings["yi_prefill"][k]
-                           for k in ("b", "s", "h", "kv", "dh", "window", "dtype")}),
-             max_abs_err_fp32=fa_err["float32"], launches_by_run=lm_runs,
-             launches_ssm_serving=ssm_counts["flash_attention"]),
+                          lm_counts["flash_attention"], fa_err[f"bfloat16/{fa_main['route']}"],
+                          fa_main, {k: fa_main[k]
+                                    for k in ("b", "s", "h", "kv", "dh", "window", "dtype")}),
+             main_shape_route=fa_main["route"], max_abs_err_by_route=fa_err,
+             launches_by_run=lm_runs, launches_ssm_serving=ssm_counts["flash_attention"]),
         dict(kernel_entry("mamba", "src/repro_torch/csrc/mamba.cu",
                           "src/repro/kernels/mamba/kernel.py:68",
                           ssm_counts["mamba"], scan_err, ssm_timings["hymba_prefill"],
@@ -1949,12 +2077,7 @@ def main() -> int:
                           ssm_counts["rwkv6"], wkv_err, ssm_timings["rwkv6_prefill"],
                           {k: ssm_timings["rwkv6_prefill"][k] for k in ("b", "t", "h", "n")}),
              library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs),
-    ]}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
-        flush=True)
-    return 0
+    ]
 
 
 if __name__ == "__main__":

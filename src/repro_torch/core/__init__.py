@@ -29,7 +29,7 @@ from repro_torch.core.imitation import (
     collect_demonstrations,
     pretrain_qnet,
 )
-from repro_torch.core.qnet import apply_qnet, hard_update, init_qnet
+from repro_torch.core.qnet import apply_qnet, hard_update, init_qnet, soft_update
 from repro_torch.core.ranking import (
     pairwise_bce,
     pairwise_bce_hard,
@@ -45,7 +45,7 @@ __all__ = [
     "featurize", "STATE_DIM", "FEATURE_DIM",
     "FeatureSet", "Paper6FeatureSet", "TelemetryFeatureSet",
     "get_feature_set", "register_feature_set", "available_feature_sets",
-    "init_qnet", "apply_qnet", "hard_update",
+    "init_qnet", "apply_qnet", "soft_update", "hard_update",
     "pairwise_bce", "pairwise_bce_hard", "pairwise_soft_targets",
     "ranking_accuracy", "topk_overlap",
     "Demonstration", "collect_demonstrations", "augment_demonstrations",

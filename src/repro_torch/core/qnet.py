@@ -41,6 +41,11 @@ def apply_qnet(p: Params, feats: torch.Tensor) -> torch.Tensor:
     return (h @ p["w3"] + p["b3"])[..., 0]
 
 
+def soft_update(target: Params, online: Params, tau: float = 1.0) -> Params:
+    """Periodic (tau=1) or Polyak (tau<1) target-network update."""
+    return {k: (1 - tau) * t + tau * online[k] for k, t in target.items()}
+
+
 def hard_update(target: Params, online: Params) -> Params:
     """Periodic target-network copy (``target`` keeps the call sites'
     shape)."""

@@ -4,7 +4,7 @@ from repro_torch.data.synthetic import (
     make_lm_stream,
 )
 from repro_torch.data.partition import dirichlet_partition, iid_partition
-from repro_torch.data.loader import FederatedData
+from repro_torch.data.loader import FederatedData, batch_iterator
 
 __all__ = [
     "SyntheticClassificationDataset",
@@ -13,4 +13,5 @@ __all__ = [
     "dirichlet_partition",
     "iid_partition",
     "FederatedData",
+    "batch_iterator",
 ]

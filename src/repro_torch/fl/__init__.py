@@ -1,5 +1,5 @@
-from repro_torch.fl.simulation import DevicePool, RoundSystemState
-from repro_torch.fl.tasks import MLPTask
+from repro_torch.fl.simulation import DevicePool, DeviceProfile, RoundSystemState
+from repro_torch.fl.tasks import ClientTask, MLPTask
 from repro_torch.fl.client import local_train, probing_epoch
 from repro_torch.fl.aggregation import (
     AGGREGATORS,
@@ -8,6 +8,7 @@ from repro_torch.fl.aggregation import (
     fedavg,
     robust_aggregate,
     staleness_weight,
+    weighted_delta_aggregate,
 )
 from repro_torch.fl.server import FLConfig, FLServer, RoundContext, RoundResult
 from repro_torch.fl.telemetry import TELEMETRY_FEATURES, DeviceTelemetry
@@ -24,8 +25,9 @@ from repro_torch.fl.engine import (
     build_round_plan,
     executor_label,
     make_executor,
+    register_executor,
 )
-from repro_torch.fl.registry import available_policies, build_policy
+from repro_torch.fl.registry import available_policies, build_policy, register_policy
 from repro_torch.fl.scenarios import (
     ScenarioSpec,
     available_scenarios,
@@ -47,14 +49,14 @@ from repro_torch.fl.traces import (
 )
 
 __all__ = [
-    "DevicePool", "RoundSystemState",
+    "DevicePool", "DeviceProfile", "RoundSystemState",
     "ScenarioSpec", "build_scenario", "register_scenario", "get_scenario",
     "available_scenarios",
-    "MLPTask", "local_train", "probing_epoch",
+    "MLPTask", "ClientTask", "local_train", "probing_epoch",
     "Trace", "ResampledFleet", "TraceSpec", "TraceLoad", "TraceAvailability",
     "SyntheticTraceSpec", "synthesize_trace",
     "read_trace_csv", "write_trace_csv", "sample_trace_path",
-    "fedavg", "AGGREGATORS", "robust_aggregate",
+    "fedavg", "weighted_delta_aggregate", "AGGREGATORS", "robust_aggregate",
     "STALENESS_KINDS", "staleness_weight",
     "buffered_aggregate",
     "FLServer", "FLConfig", "RoundContext", "RoundResult",
@@ -63,6 +65,6 @@ __all__ = [
     "RoundPlan", "build_round_plan", "build_requests",
     "ClientExecutor", "ClientRequest", "ExecutionResult",
     "SequentialExecutor", "AsyncDispatchExecutor", "executor_label",
-    "make_executor", "available_executors",
-    "build_policy", "available_policies",
+    "make_executor", "register_executor", "available_executors",
+    "build_policy", "register_policy", "available_policies",
 ]

@@ -6,6 +6,7 @@ reference does.  The asynchronous engine merges a *buffer* of updates that
 started from different global-model versions, so each update is also scaled
 by a staleness weight of its version lag (:func:`staleness_weight`,
 FedBuff/FedAsync-style) in :func:`buffered_aggregate`.
+:func:`weighted_delta_aggregate` is the FedOpt server step over the same mean.
 :func:`robust_aggregate` and :func:`buffered_aggregate` take
 ``kind="mean"`` / ``robust="mean"`` only; the Byzantine-robust reducers come
 with the robustness slice.
@@ -99,3 +100,14 @@ def buffered_aggregate(global_params: Params, client_params: Sequence[Params],
             acc = acc + p[name].float() * float(ci)
         out[name] = acc.to(g.dtype)
     return out
+
+
+def weighted_delta_aggregate(global_params: Params,
+                             client_params: Sequence[Params],
+                             weights: Sequence[float],
+                             server_lr: float = 1.0) -> Params:
+    """FedOpt-style: apply the weighted mean of client deltas with a server
+    step size (reduces to fedavg at server_lr=1)."""
+    avg = fedavg(client_params, weights)
+    return {name: (g.float() + server_lr * (avg[name].float() - g.float())).to(g.dtype)
+            for name, g in global_params.items()}

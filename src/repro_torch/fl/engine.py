@@ -165,10 +165,15 @@ class AsyncDispatchExecutor:
                               batch_size=batch_size, prox_mu=prox_mu)
 
 
-_EXECUTORS: Dict[str, Callable[..., ClientExecutor]] = {
-    "sequential": SequentialExecutor,
-    "async": AsyncDispatchExecutor,
-}
+_EXECUTORS: Dict[str, Callable[..., ClientExecutor]] = {}
+
+
+def register_executor(name: str, factory: Callable[..., ClientExecutor]) -> None:
+    """Register an executor factory under ``name``; a name already
+    registered raises ``ValueError``."""
+    if name in _EXECUTORS:
+        raise ValueError(f"executor {name!r} already registered")
+    _EXECUTORS[name] = factory
 
 
 def make_executor(name: str, **kw) -> ClientExecutor:
@@ -182,3 +187,7 @@ def make_executor(name: str, **kw) -> ClientExecutor:
 
 def available_executors() -> List[str]:
     return sorted(_EXECUTORS)
+
+
+register_executor("sequential", SequentialExecutor)
+register_executor("async", AsyncDispatchExecutor)

@@ -18,7 +18,8 @@ Registered names (see :func:`available_policies`):
 * ``expert-oort``, ``expert-harmony``, ``expert-fedmarl`` — the analytical
   IL teachers wrapped as probing policies.
 
-Any other name raises ``KeyError`` listing these.
+Any other name raises ``KeyError`` listing these.  :func:`register_policy`
+adds a factory under a new name.
 """
 from __future__ import annotations
 
@@ -27,13 +28,15 @@ from typing import Callable, Dict, List
 from repro_torch.fl.server import SelectionPolicy
 
 _POLICIES: Dict[str, Callable[..., SelectionPolicy]] = {}
+_populated = False
 
 
 def _populate() -> None:
     """Register the built-in policies on first use (``repro_torch.core``
     imports ``repro_torch.fl``, so registering lazily keeps both packages
     importable in either order)."""
-    if _POLICIES:
+    global _populated
+    if _populated:
         return
     from repro_torch.core.baselines import (
         AFLPolicy,
@@ -53,7 +56,7 @@ def _populate() -> None:
             return make_fedrank_variant(variant, qnet, **kw)
         return factory
 
-    _POLICIES.update({
+    builtin = {
         "fedavg": lambda **kw: RandomPolicy("fedavg", **kw),
         "random": lambda **kw: RandomPolicy("random", **kw),
         "fedprox": lambda **kw: RandomPolicy("fedprox", **kw),
@@ -67,10 +70,22 @@ def _populate() -> None:
         "fedrank-I": fedrank("no_il"),
         "fedrank-P": fedrank("no_rank"),
         "fedrank-IP": fedrank("no_il_no_rank"),
-    })
+    }
     for expert in EXPERTS:
-        _POLICIES[f"expert-{expert}"] = (
+        builtin[f"expert-{expert}"] = (
             lambda _e=expert, **kw: ExpertPolicy(_e, **kw))
+    # setdefault: a name registered before first use wins, as in the reference
+    for name, factory in builtin.items():
+        _POLICIES.setdefault(name, factory)
+    _populated = True
+
+
+def register_policy(name: str, factory: Callable[..., SelectionPolicy]) -> None:
+    """Register a policy factory under ``name`` (kwargs pass through);
+    a name already registered raises ``ValueError``."""
+    if name in _POLICIES:
+        raise ValueError(f"policy {name!r} already registered")
+    _POLICIES[name] = factory
 
 
 def build_policy(name: str, **kw) -> SelectionPolicy:

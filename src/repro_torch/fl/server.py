@@ -90,6 +90,8 @@ class FLConfig:
     trace_csv: Optional[str] = None   # LiveLab-format trace CSV replayed as
     #                               the scenario's load+availability (swaps
     #                               the named scenario's TraceSpec source)
+    failure_rate: float = 0.0     # extra Bernoulli dropout layered on top of
+    #                               the scenario's failure model
     mode: str = "sync"            # round regime: "sync" barrier loop or
     #                               "async" buffered aggregation
     #                               (repro_torch.fl.async_engine)
@@ -262,6 +264,11 @@ class FLServer:
         # trace lookups run where the model does
         self.pool = build_scenario(cfg.scenario, cfg.n_devices, seed=cfg.seed,
                                    device=self.device, **scenario_kw)
+        if cfg.failure_rate > 0:
+            # extra Bernoulli dropout over the scenario's failure model
+            self.pool.failures = dataclasses.replace(
+                self.pool.failures,
+                dropout=max(self.pool.failures.dropout, cfg.failure_rate))
         self.rng = np.random.default_rng(cfg.seed + 17)
         self.feature_set = get_feature_set(cfg.feature_set)  # validates early
         self.telemetry = DeviceTelemetry(cfg.n_devices)

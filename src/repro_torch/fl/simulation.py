@@ -23,6 +23,15 @@ import numpy as np
 
 
 @dataclass
+class DeviceProfile:
+    speed: float          # FLOP/s sustained
+    bandwidth: float      # bytes/s (symmetrized up+down)
+    j_per_flop: float
+    j_per_byte: float
+    tier: int
+
+
+@dataclass
 class RoundSystemState:
     """Per-device system observables for one round (before selection)."""
 
@@ -85,8 +94,20 @@ class DevicePool:
         self._load_state = self.load_model.init_state(n_devices, self.rng)
         self._avail_state = self.availability.init_state(n_devices, self.rng)
         self.round_idx = 0
+        self._profiles: Optional[List[DeviceProfile]] = None
         self._comm_cache = None   # (model_bytes, t_comm, e_comm)
         self._inv_speed = 1.0 / self.speed
+
+    @property
+    def devices(self) -> List[DeviceProfile]:
+        """Per-device profile objects (a view over the arrays, built once)."""
+        if self._profiles is None:
+            self._profiles = [
+                DeviceProfile(float(self.speed[i]), float(self.bandwidth[i]),
+                              float(self.j_per_flop[i]), float(self.j_per_byte[i]),
+                              int(self.tier[i]))
+                for i in range(self.n)]
+        return self._profiles
 
     def advance_round(self) -> None:
         """Step every device's load + availability dynamics."""
@@ -197,3 +218,49 @@ def plan_round_energy(state: RoundSystemState, probe_ids: np.ndarray,
         frac = np.clip(deadline_s / np.maximum(t_full, 1e-12), 0.0, 1.0)
         rest = rest * frac
     return e + float(rest.sum())
+
+
+def client_job_latency(state: RoundSystemState, ids: np.ndarray, epochs: int,
+                       include_comm: bool = True) -> np.ndarray:
+    """(len(ids),) seconds of active work for one client job: ``epochs``
+    local epochs plus (optionally) the model down+up transfer; the
+    asynchronous engine overlaps these on its virtual clock."""
+    t = state.t_comp[ids] * epochs
+    if include_comm:
+        t = t + state.t_comm[ids]
+    return t
+
+
+def client_job_energy(state: RoundSystemState, ids: np.ndarray, epochs: int,
+                      include_comm: bool = True) -> np.ndarray:
+    """(len(ids),) joules for one client job (see :func:`client_job_latency`)."""
+    e = state.e_comp[ids] * epochs
+    if include_comm:
+        e = e + state.e_comm[ids]
+    return e
+
+
+def round_latency(state: RoundSystemState, probe_set: np.ndarray,
+                  selected: np.ndarray, l_ep: int) -> float:
+    """R_T per the paper: T_prob + max over selected of
+    (T_comm + T_comp * (l_ep - 1))."""
+    return plan_round_latency(state, probe_set, selected, 1, l_ep - 1)
+
+
+def round_energy(state: RoundSystemState, probe_set: np.ndarray,
+                 selected: np.ndarray, l_ep: int) -> float:
+    """R_E per the paper: E_prob + sum over selected of
+    (E_comm + E_comp * (l_ep - 1))."""
+    return plan_round_energy(state, probe_set, selected, 1, l_ep - 1)
+
+
+def vanilla_round_latency(state: RoundSystemState, selected: np.ndarray,
+                          l_ep: int) -> float:
+    """Non-probing baseline: every selected device runs all l_ep epochs."""
+    return plan_round_latency(state, np.empty(0, np.int64), selected, 0, l_ep)
+
+
+def vanilla_round_energy(state: RoundSystemState, selected: np.ndarray,
+                         l_ep: int) -> float:
+    """Energy of the non-probing baseline (see :func:`vanilla_round_latency`)."""
+    return plan_round_energy(state, np.empty(0, np.int64), selected, 0, l_ep)

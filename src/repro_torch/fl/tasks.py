@@ -1,11 +1,12 @@
 """Client-side training task: the classification MLP each FL client trains.
 
 :class:`MLPTask` plays the role of LeNet5/ResNet18 in the paper's testbed on
-the synthetic feature datasets.  The LM task waits for the model-zoo port.
+the synthetic feature datasets; :class:`ClientTask` is what the server and
+the executors need of a task.  The LM task comes with the LM-training slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Protocol
 
 import torch
 
@@ -13,6 +14,18 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.models.layers import dense_init, softmax_xent
 
 Params = Dict[str, torch.Tensor]
+
+
+class ClientTask(Protocol):
+    def init(self, seed: int = 0, device: DeviceLike = None) -> Params: ...
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor: ...
+
+    def accuracy(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor: ...
+
+    def flops_per_sample(self) -> float: ...
+
+    def param_bytes(self) -> float: ...
 
 
 class MLPTask:

@@ -12,6 +12,13 @@ future or outside the window; fp32 (m, l, acc), the reference's finite
 ``NEG_INF`` masking, ragged last tiles masked, so any S >= 1.  Its header
 gives the bound on the card.
 
+The source holds two kernels behind one entry; :func:`flash_route` picks
+one from the dtype and Dh alone: ``"mma"`` (``flash_fwd_mma_kernel``, bf16
+with Dh <= 128: ``mma.sync`` on the tensor cores, fp32 sums, P split into
+bf16 high and low parts) or ``"fma"`` (``flash_fwd_kernel``: fp32 inputs,
+and bf16 with Dh > 128, fp32 FMAs on the CUDA cores).  Nothing falls back
+from one to the other.
+
 ``LIBRARY`` builds the source with ``nvcc`` at first use into
 ``build/kernels/`` (:mod:`repro_torch.kernels._build`).  Nothing is built
 when this module is imported.
@@ -19,7 +26,8 @@ when this module is imported.
 :func:`flash_attention_cuda` launches the kernel for CUDA tensors and takes
 the plain version (:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`)
 only for CPU tensors; any other device raises.  ``flash_attention_cuda.launches``
-counts kernel launches.
+counts kernel launches of both routes, ``flash_attention_cuda.mma_launches``
+those of the tensor-core route.
 """
 from __future__ import annotations
 
@@ -33,14 +41,23 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 ROWS = 64                 # flash_attention.cu ROWS: (position, head) rows per CTA
 MAX_DH = 256
+MMA_MAX_DH = 128          # the tensor-core kernel's widest head (padded to 64 or 128)
 MAX_GRID_YZ = 65535
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTE_CODES = {"fma": 0, "mma": 1}
+
+
+def flash_route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel a launch takes: ``"mma"`` (tensor cores) for bf16 with
+    Dh <= 128, ``"fma"`` (CUDA cores) for everything else the wrapper
+    accepts (fp32, and bf16 with 128 < Dh <= 256)."""
+    return "mma" if dtype == torch.bfloat16 and dh <= MMA_MAX_DH else "fma"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -69,11 +86,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          window: Optional[int] = None) -> torch.Tensor:
     """q (B, S, H, Dh), k/v (B, S, KV, Dh) -> (B, S, H, Dh) in q's dtype.
 
-    CUDA tensors launch the kernel (and count the launch); CPU tensors take
-    the plain version; anything else raises.  The kernel takes fp32 and
-    bf16, H / KV <= 64, Dh <= 256 and B, KV <= 65535, with the last
-    dimension contiguous and every row, stride and base 16-byte aligned; it
-    raises on anything else rather than copy.
+    CUDA tensors launch the kernel that :func:`flash_route` names (and count
+    the launch); CPU tensors take the plain version; anything else raises.
+    The kernels take fp32 and bf16, H / KV <= 64, Dh <= 256 and B, KV <=
+    65535, with the last dimension contiguous and every row, stride and base
+    16-byte aligned; the wrapper raises on anything else rather than copy.
     """
     _check(q, k, v, window)
     dev = q.device
@@ -105,18 +122,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
+    route = flash_route(q.dtype, dh)
     lib = LIBRARY.load()
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPE_CODES[q.dtype], b, s, h, kv, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window or 0),
+            int(causal), int(window or 0), ROUTE_CODES[route],
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch ({route}) failed: "
+                           f"CUDA error {err}")
     flash_attention_cuda.launches += 1
+    if route == "mma":
+        flash_attention_cuda.mma_launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.mma_launches = 0

@@ -12,6 +12,15 @@ alone.
 Tolerance: 1e-5 on fp32 inputs (fp32 sums in another order); on bf16 inputs
 one bf16 rounding of the output, 2^-8 of its magnitude (both sides compute
 in fp32 and round once).
+
+The tensor-core kernel (bf16, Dh <= 128) runs only on the card, where
+``chip_smoke.py`` holds it to the plain version at ``2^-7 |ref| + 2e-5`` per
+element.  Its arithmetic is emulated here in fp32: 64-key tiles, the online
+softmax in base 2 with the finite ``NEG_INF``, and P split into a bf16 high
+and a bf16 low part whose products with v are summed in fp32.  The emulation
+stays within that tolerance of the reference; the same emulation with P
+rounded once to bf16 (FlashAttention-2's choice) does not, which is why the
+kernel splits P.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -95,9 +104,13 @@ def test_bf16_inputs_match_reference():
 
 def test_cpu_takes_the_plain_version_and_counts_no_launch():
     fa_kernel.flash_attention_cuda.launches = 0
+    fa_kernel.flash_attention_cuda.mma_launches = 0
     arrays = _inputs(1, 9, 4, 2, 32, seed=0)
     _port(flash_attention, arrays, causal=True)
+    tq, tk, tv = (torch.as_tensor(a).to(torch.bfloat16) for a in arrays)
+    flash_attention(tq, tk, tv, causal=True)
     assert fa_kernel.flash_attention_cuda.launches == 0
+    assert fa_kernel.flash_attention_cuda.mma_launches == 0
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -118,3 +131,113 @@ def test_other_devices_are_refused():
     q = torch.zeros(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 64, "mma"),        # Hymba
+    (torch.bfloat16, 120, "mma"),       # h2o-danube, padded to 128
+    (torch.bfloat16, 128, "mma"),       # Yi-6B, minitron
+    (torch.bfloat16, 8, "mma"),
+    (torch.bfloat16, 136, "fma"),
+    (torch.bfloat16, 256, "fma"),       # gemma-7b
+    (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"),
+    (torch.float32, 256, "fma"),
+])
+def test_route_rule(dtype, dh, route):
+    assert fa_kernel.flash_route(dtype, dh) == route
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, emulated in fp32
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -7          # chip_smoke.py FA_ULP_BF16
+BF16_ABS = 2e-5               # chip_smoke.py FA_TOL32
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_mma_kernel(q, k, v, *, causal, window, split_p, bk=64):
+    """flash_fwd_mma_kernel's arithmetic on fp32 tensors holding bf16 values:
+    per 64-key tile the fp32 scores (scaled by Dh^-0.5 log2 e), the finite
+    NEG_INF mask, the running max and sum in base 2, and O += P V with P
+    either split (bf16(P) + bf16(P - bf16(P))) or rounded once; the output
+    acc / max(l, 1e-30) rounded to bf16."""
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, dh)
+    scale = torch.tensor(dh ** -0.5, dtype=torch.float32) * LOG2E
+    m = torch.full(qg.shape[:-1], NEG_INF)
+    l = torch.zeros(qg.shape[:-1])
+    acc = torch.zeros(qg.shape)
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        sc = torch.einsum("bqkgd,bskd->bqkgs", qg, kt) * scale
+        kpos = torch.arange(k0, min(k0 + bk, s))[None, :]
+        ok = torch.ones(s, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        sc = torch.where(ok[None, :, None, None, :], sc, torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        if split_p:
+            hi = _bf16(p)
+            pv = (torch.einsum("bqkgs,bskd->bqkgd", hi, vt)
+                  + torch.einsum("bqkgs,bskd->bqkgd", _bf16(p - hi), vt))
+        else:
+            pv = torch.einsum("bqkgs,bskd->bqkgd", _bf16(p), vt)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return _bf16(acc / torch.clamp(l, min=1e-30)[..., None]).reshape(b, s, h, dh)
+
+
+def _bf16_case(b, s, h, kv, dh, causal, window, seed):
+    arrays = [_bf16(torch.as_tensor(a)) for a in _inputs(b, s, h, kv, dh, seed)]
+    want = np.asarray(jax_ref(*(jnp.asarray(a.numpy()) for a in arrays),
+                              causal=causal, window=window))
+    return arrays, torch.from_numpy(want.copy())
+
+
+def _tolerance_share(got, want):
+    """Each element's error as a share of the card's bf16 tolerance."""
+    return (got - want).abs() / (BF16_ULP * want.abs() + BF16_ABS)
+
+
+# S <= 256, G in {1, 5, 8}, Dh in {64, 120}, causal and windowed
+EMULATION_CASES = [
+    (2, 256, 8, 1, 64, True, None),
+    (1, 256, 8, 1, 120, True, 100),
+    (1, 200, 5, 1, 64, True, 17),
+    (1, 129, 5, 1, 120, False, None),
+    (2, 130, 4, 4, 120, True, None),     # G=1
+    (1, 256, 1, 1, 64, False, 64),
+]
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_mma_kernel_arithmetic_within_the_card_tolerance(case):
+    b, s, h, kv, dh, causal, window = case
+    (q, k, v), want = _bf16_case(b, s, h, kv, dh, causal, window, seed=s + dh + h)
+    got = _emulate_mma_kernel(q, k, v, causal=causal, window=window, split_p=True)
+    # the error is the output's own bf16 rounding, half a bf16 ulp (half the
+    # tolerance), plus fp32 sums
+    assert float(_tolerance_share(got, want).max()) <= 0.51
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_p_rounded_once_to_bf16_breaks_the_card_tolerance(case):
+    b, s, h, kv, dh, causal, window = case
+    (q, k, v), want = _bf16_case(b, s, h, kv, dh, causal, window, seed=s + dh + h)
+    got = _emulate_mma_kernel(q, k, v, causal=causal, window=window, split_p=False)
+    share = _tolerance_share(got, want)
+    assert int((share > 1.0).sum()) > 0 and float(share.max()) > 10.0

@@ -5,6 +5,10 @@
 * Entry points asked for ``cuda`` (or left to their default, the card) on a
   machine without one raise; they do not quietly run on the CPU.
 * Configurations the port has not reached yet are refused, naming the slice.
+* Every module of the port that has a counterpart in ``repro`` carries its
+  public names (top-level ``def``/``class`` and ``__all__``), except names
+  that ``ROADMAP.md`` queues for a later slice or records as replaced by the
+  port's own design (the Pallas kernels and their backend switches).
 """
 import ast
 from pathlib import Path
@@ -88,6 +92,88 @@ def test_no_jax_and_no_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro", "flax"), (path, mod)
+
+
+# Public names of a reference module that its port may lack, each named in
+# ROADMAP.md: queued for a later slice (section 1) ...
+QUEUED = {
+    "fl/__init__.py": {
+        "VmappedExecutor", "make_parallel_local_train",            # item 2
+        "LMTask",                                                   # item 4
+        "AggregationTopology", "TierSpec", "HierarchicalAsyncEngine",
+        "run_topology_round", "register_topology", "get_topology",
+        "available_topologies", "RegionSpec", "AttackModel", "SignFlip",
+        "ScaledUpdate", "GaussianNoise", "LabelSkewDrift", "trimmed_mean",
+        "coordinate_median", "krum", "multi_krum", "compose_staleness",  # item 5
+    },
+    "fl/engine.py": {"VmappedExecutor"},
+    "fl/client.py": {"make_parallel_local_train"},
+    "fl/tasks.py": {"LMTask"},
+    "fl/aggregation.py": {"trimmed_mean", "coordinate_median", "krum", "krum_scores",
+                          "multi_krum", "compose_staleness"},
+    "fl/scenarios.py": {"RegionSpec", "RegionOutage", "RegionalAvailability",
+                        "RegionalLoad", "split_by_weight"},
+    "launch/steps.py": {"make_optimizer", "make_train_step",      # item 4
+                        "params_struct", "opt_struct", "batch_specs",
+                        "decode_state_struct", "input_specs"},  # item 8
+}
+# ... or replaced by the port's design (section 2): name -> the port's name
+# in the same module that takes its place
+REPLACED = {
+    "kernels/select_topk/kernel.py": {"select_topk_pallas": "select_topk_cuda"},
+    "kernels/pairwise_rank/kernel.py": {"pairwise_rank_pallas": "pairwise_rank_fwd_cuda"},
+    "kernels/fleet_state/kernel.py": {"segment_index_pallas": "segment_index_cuda"},
+    "kernels/flash_attention/kernel.py": {"flash_attention_folded": "flash_attention_cuda"},
+    "kernels/mamba/kernel.py": {"selective_scan_pallas": "selective_scan_cuda"},
+    "kernels/rwkv6/kernel.py": {"wkv6_pallas": "wkv6_cuda"},
+    "kernels/select_topk/ops.py": {"resolve_select_impl": "select_topk"},
+    "kernels/pairwise_rank/ops.py": {"resolve_rank_impl": "pairwise_rank",
+                                     "pairwise_rank_loss": "pairwise_rank"},
+    "kernels/fleet_state/ops.py": {"resolve_fleet_state_impl": "segment_index"},
+    "kernels/flash_attention/ops.py": {"attention": "flash_attention"},
+    "core/features.py": {"featurize_jnp": "featurize"},
+}
+
+
+def _public_names(path: Path):
+    """Top-level public def/class names, and ``__all__`` (or None)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    defs, exported = set(), None
+    for node in tree.body:
+        if (isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                and not node.name.startswith("_")):
+            defs.add(node.name)
+        elif isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            exported = set(ast.literal_eval(node.value))
+    return defs, exported
+
+
+PORT_PKG, REF_PKG = ROOT / "src" / "repro_torch", ROOT / "src" / "repro"
+MODULE_PAIRS = sorted(p.relative_to(PORT_PKG).as_posix() for p in PORT_PKG.rglob("*.py")
+                      if (REF_PKG / p.relative_to(PORT_PKG)).is_file())
+
+
+@pytest.mark.parametrize("rel", MODULE_PAIRS)
+def test_ported_modules_keep_the_reference_public_names(rel):
+    ref_defs, ref_all = _public_names(REF_PKG / rel)
+    defs, exported = _public_names(PORT_PKG / rel)
+    allowed = QUEUED.get(rel, set()) | set(REPLACED.get(rel, {}))
+    assert ref_defs - defs <= allowed, sorted(ref_defs - defs - allowed)
+    if ref_all is not None:
+        assert exported is not None, f"{rel} has no __all__"
+        assert ref_all - exported <= allowed, sorted(ref_all - exported - allowed)
+    # no stale entry: what is allowed is still missing, and what replaces it is there
+    assert not (allowed & (defs | (exported or set()))), sorted(allowed & defs)
+    for name, ours in REPLACED.get(rel, {}).items():
+        assert ours in defs | (exported or set()), (name, ours)
+
+
+def test_every_allowed_missing_name_is_in_the_roadmap():
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    assert set(QUEUED) | set(REPLACED) <= set(MODULE_PAIRS)
+    names = set().union(*QUEUED.values(), *(set(r) for r in REPLACED.values()))
+    assert not [n for n in sorted(names) if n not in roadmap]
 
 
 def _no_card():
