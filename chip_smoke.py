@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [STEP ...]
+
+With no argument it runs every step below.  Given step names (``build``,
+``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
+``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
+``path7_ssm``) it builds every library, runs only those steps and ends with
+the summary line and the card line; the ``kernels`` line and the last line
+need the whole run.
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -14,12 +21,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
    patterns, hidden widths, feature widths past shared memory (F=96,
    H=256; F=600) and k past 1024 (k=2000 at N=1e5); ``pairwise_rank``
-   forward loss and score gradient over N in {1, 2, 7, 30, 127, 128, 129,
-   1000, 8192}, B in {1, 16, 70000}, hard and soft targets, plus all-masked
-   rows, duplicated scores, tied targets and a fractional mask;
-   ``fleet_state`` with exact equality over both trace fixtures at fleet
-   sizes 1 to 1e6, the split-time edge cases, random traces and a
-   1024-device four-week synthetic trace at 1e5 queries;
+   by its two routes (the fused loss-and-gradient launch through the
+   autograd Function, the loss-only launch under ``torch.no_grad``) over N
+   in {1, 2, 7, 30, 31, 32, 33, 127, 128, 129, 1000, 8192}, B in {1, 16,
+   70000}, hard and soft targets, plus all-masked rows, duplicated scores,
+   tied targets, a fractional mask and well-ranked cohorts (scores ordered
+   as the hard targets, 4, 10 or 20 apart: losses down to ~1e-9); ``fleet_state`` with exact equality, by the device wrapper and by
+   the one-call host lookup, over both trace fixtures at fleet sizes 1 to
+   1e6, the split-time edge cases, random traces and a 1024-device
+   four-week synthetic trace at 1e5 queries (the uploaded CSR offsets
+   equal each trace's);
    ``flash_attention`` in fp32 and bf16 over S in {1, 7, 128, 129, 1000}
    x G in {1, 4, 5, 8} x Dh in {64, 120, 128} x causal/bidirectional x
    window in {None, 64, 1024}, ten cases at S = 4096 and 8192 (windows up
@@ -42,7 +53,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
    version's, the least time the card could take (the bound) and a one-call
    PyTorch yardstick: for ``fleet_state`` ``torch.searchsorted`` over the f64
-   key, for ``flash_attention`` ``scaled_dot_product_attention`` (``is_causal``,
+   key (and the op-level lookup at N=1000, host included, beside numpy's
+   ``searchsorted``: the reference's host path), for ``pairwise_rank`` none
+   (the fused launch beside the loss-only one; the design it replaced is
+   timed from a checkout of it by ``scripts/pairwise_rank_precision.py``),
+   for ``flash_attention`` ``scaled_dot_product_attention`` (``is_causal``,
    or a boolean causal-and-window mask) at Yi-6B's prefill (B=4, S=1024),
    S=8192 and S=32768, h2o-danube's (window 4096; S=5000 and 8192) and
    Hymba's attention (window 1024; path 7's B=4, S=2048 and B=1, S=8192);
@@ -62,7 +77,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    under ``torch.profiler``;
 6. path 2, imitation learning at the paper's configuration: demonstrations
    from the oort, harmony and fedmarl experts (15 rounds each), 200
-   synthetic cohorts, 2000 ``pretrain_qnet`` steps (batch 16), then 3
+   synthetic cohorts, 2000 ``pretrain_qnet`` steps (batch 16; exactly one
+   pair-kernel launch a step, the fused one), then 3
    FedRank rounds from the pretrained Q-net; 50 more pretraining steps under
    ``torch.profiler``;
 7. path 3, one round of each baseline at 1000 devices;
@@ -92,9 +108,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     (the profiles report each flash kernel's device time apart);
 12. a ``summary`` line (each step's status, its largest error and its
     device idle shares; printed also when a step fails, before the error),
-    a ``kernels`` line (seven entries: every TPU kernel of the repo, with
-    ``pairwise_rank``'s forward and gradient apart, each with its times and
-    launches; ``flash_attention`` adds the route its main shape took), then
+    a ``kernels`` line (six entries, one per TPU kernel of the repo, each
+    with its times and launches; ``pairwise_rank`` adds its loss-only route,
+    ``flash_attention`` the route its main shape took), then
     the card line, then
     ``{"ok": true, ...}``.  The last four lines stay within ~12 KB, so that
     a tool that keeps only the end of the output keeps them.
@@ -109,8 +125,10 @@ version's adjacent score gap exceeds twice that; indices exactly equal where
 scores tie exactly (duplicated rows, quantised scores, masked rows).
 ``pairwise_rank``: loss within 1e-5 * max(1, |loss|); gradient within 1e-5 *
 max |g_ref| of its row, and exactly 0 on an all-masked row (fp32 pair sums
-in another order; the forward adds fp32 tile sums in fp64, the gradient is
-fp64 throughout).  The plain version is evaluated in fp64 on the same fp32
+in another order; the loss adds fp32 tile sums in fp64; the gradient terms
+are fp32 in forms without cancellation, summed in fp64); on well-ranked
+cohorts with hard targets the loss also within 1e-5 * |loss| (each term
+log1p(e) to a few ulps relative, so a small loss keeps its digits).  The plain version is evaluated in fp64 on the same fp32
 inputs: among 70,000 random cohorts some rows' pair terms nearly cancel,
 and an fp32 evaluation of either side cannot resolve 1e-5 of what is left.  ``fleet_state``:
 exactly equal (the kernel computes the plain version's count).
@@ -270,6 +288,20 @@ def topk_bound_ms(n, f, h, k):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def host_us(torch, fn, calls=1000, warmup=100):
+    """Host microseconds per call over ``calls`` back-to-back calls (what
+    launch-bound wrappers cost the host), one synchronise at the end
+    included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
 def cuda_ms(torch, fn, reps=25, warmup=5):
     for _ in range(warmup):
         fn()
@@ -293,7 +325,7 @@ def cuda_ms(torch, fn, reps=25, warmup=5):
 
 def _wrappers():
     from repro_torch.kernels.pairwise_rank.kernel import (
-        pairwise_rank_bwd_cuda,
+        pairwise_rank_fused_cuda,
         pairwise_rank_fwd_cuda,
     )
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -303,8 +335,8 @@ def _wrappers():
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
 
     return {"select_topk": select_topk_cuda,
+            "pairwise_rank_fused": pairwise_rank_fused_cuda,
             "pairwise_rank_fwd": pairwise_rank_fwd_cuda,
-            "pairwise_rank_bwd": pairwise_rank_bwd_cuda,
             "fleet_state": segment_index_cuda,
             "flash_attention": flash_attention_cuda,
             "mamba": selective_scan_cuda,
@@ -330,9 +362,10 @@ def read_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 # fp32 operations per valid pair (pm != 0), transcendentals (expf, log1pf,
-# the sigmoid's expf) counted as one operation each (csrc/pairwise_rank.cu)
+# expm1f, the sigmoid's expf, a division) counted as one operation each
+# (csrc/pairwise_rank.cu): the loss alone, and the fused loss and gradient
 PAIR_OPS = {("fwd", True): 14, ("fwd", False): 16,
-            ("bwd", True): 10, ("bwd", False): 12}
+            ("fused", True): 18, ("fused", False): 28}
 
 
 def pairwise_inputs(torch, b, n, seed, *, masked_frac=0.3, case="random"):
@@ -349,6 +382,8 @@ def pairwise_inputs(torch, b, n, seed, *, masked_frac=0.3, case="random"):
         t = torch.randint(0, 3, (b, n), generator=g, device=dev).float()
     elif case == "fractional-mask":
         m[:, n // 2] = 0.5
+    elif case.startswith("well-ranked-"):       # scores ordered as the targets
+        s = float(case.rsplit("-", 1)[1]) * t.argsort(1).argsort(1).float()
     return s.contiguous(), t.contiguous(), m.contiguous()
 
 
@@ -372,17 +407,14 @@ def pairwise_plain(torch, s, t, m, hard):
 def pairwise_bound_ms(torch, m, kind, hard):
     """Least time for one call: the operations on the valid pairs this mask
     gives (pm != 0) over the fp32 rate, the type of the function's inputs
-    and outputs (the gradient kernel computes in fp64, which this bound does
-    not credit), or the bytes (inputs read once, outputs written once) over
+    and outputs, or the bytes (inputs read once, outputs written once) over
     HBM bandwidth, whichever is larger."""
     b, n = m.shape
     nz = (m != 0).double().sum(1)
     pairs = float((nz * nz - nz).sum())
     ops = pairs * PAIR_OPS[(kind, hard)]
-    if kind == "fwd":
-        nbytes = 12.0 * b * n + 12.0 * b            # s, t, m in; loss f32, count f64 out
-    else:
-        nbytes = 12.0 * b * n + 12.0 * b + 4.0 * b * n   # + count, g in; grad out
+    # s, t, m in; loss f32 and count f64 out; + the gradient out
+    nbytes = 12.0 * b * n + 12.0 * b + (0.0 if kind == "fwd" else 4.0 * b * n)
     t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -577,62 +609,112 @@ def phase_profile(torch, srv, policy):
          top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
 
 
+def check_pairwise(torch, c, loss, grad, ref_loss, ref_grad):
+    """Loss and gradient (either may be None) against the fp64 plain
+    version; returns (loss error, gradient error).  A well-ranked cohort's
+    loss with hard targets is held to 1e-5 of itself as well."""
+    e_loss = e_grad = 0.0
+    if loss is not None:
+        err = (loss.detach().double() - ref_loss).abs()
+        require(bool((err <= TOL * torch.clamp(ref_loss.abs(), min=1.0)).all()),
+                f"pairwise loss off in {c}: {err.max().item()}")
+        if c["case"].startswith("well-ranked-") and c["hard"]:
+            rel = float((err / ref_loss.abs()).max())
+            require(bool((ref_loss > 0).all()) and rel <= TOL,
+                    f"pairwise loss off relative in {c}: {rel}")
+        if c["case"] == "all-masked":
+            require(bool((loss == 0).all()), c)
+        e_loss = float(err.max())
+    if grad is not None:
+        g_ref_max = ref_grad.abs().max(1).values
+        err = (grad.double() - ref_grad).abs().max(1).values
+        require(bool((err <= TOL * g_ref_max).all()),
+                f"pairwise gradient off in {c}: {err.max().item()}")
+        if c["case"] == "all-masked":
+            require(not bool(grad.any()), c)
+        e_grad = float(err.max())
+    return e_loss, e_grad
+
+
 def phase_pairwise_vs_plain(torch):
-    """Forward loss and score gradient of the op (both kernels, through its
-    autograd Function) against the plain version and its autograd."""
+    """Each route against the plain version and its autograd: the op with a
+    gradient (the fused launch, through its autograd Function) and the op
+    under ``torch.no_grad`` (the loss-only launch)."""
+    from repro_torch.kernels.pairwise_rank.kernel import (
+        pairwise_rank_fused_cuda,
+        pairwise_rank_fwd_cuda,
+    )
     from repro_torch.kernels.pairwise_rank.ops import pairwise_rank
 
     cases = [dict(b=b, n=n, hard=hard, case="random")
-             for n in (1, 2, 7, 30, 127, 128, 129, 1000, 8192)
+             for n in (1, 2, 7, 30, 31, 32, 33, 127, 128, 129, 1000, 8192)
              for b in (1, 16) for hard in (True, False)]
-    # past grid.y's 65,535 rows: the launch loops over row chunks
-    cases += [dict(b=70_000, n=8, hard=hard, case="random") for hard in (True, False)]
+    # past grid.y's 65,535 rows (the tile kernel loops over cohort chunks;
+    # N = 8 takes four cohorts a warp)
+    cases += [dict(b=70_000, n=n, hard=hard, case="random")
+              for n in (8, 40) for hard in (True, False)]
     for hard in (True, False):
         cases += [dict(b=16, n=30, hard=hard, case="all-masked"),
+                  dict(b=16, n=129, hard=hard, case="all-masked"),
                   dict(b=16, n=129, hard=hard, case="duplicated-scores"),
+                  dict(b=16, n=30, hard=hard, case="duplicated-scores"),
                   dict(b=4, n=1000, hard=hard, case="tied-targets"),
-                  dict(b=16, n=30, hard=hard, case="fractional-mask")]
-    err_fwd = err_bwd = 0.0
+                  dict(b=16, n=30, hard=hard, case="tied-targets"),
+                  dict(b=16, n=30, hard=hard, case="fractional-mask"),
+                  dict(b=16, n=300, hard=hard, case="fractional-mask")]
+    # well-ranked cohorts: losses from ~1e-2 down to ~1e-9, held relative
+    cases += [dict(b=b, n=n, hard=True, case=f"well-ranked-{gap:g}")
+              for gap in (4.0, 10.0, 20.0) for b, n in ((16, 30), (4, 1000))]
+    errs = {"fused_loss": 0.0, "fused_grad": 0.0, "fwd_loss": 0.0}
     summary = []
     for i, c in enumerate(cases):
         s, t, m = pairwise_inputs(torch, c["b"], c["n"], seed=i, case=c["case"])
         x = s.clone().requires_grad_(True)
         loss = pairwise_rank(x, t, m, hard=c["hard"])
         (grad,) = torch.autograd.grad(loss.sum(), x)
+        with torch.no_grad():
+            loss_only = pairwise_rank(x, t, m, hard=c["hard"])
+        _, count_f, grad_f = pairwise_rank_fused_cuda(s, t, m, hard=c["hard"])
+        _, count_w = pairwise_rank_fwd_cuda(s, t, m, hard=c["hard"])
         ref_loss, ref_grad = pairwise_plain(torch, s.double(), t.double(),
                                             m.double(), c["hard"])
         torch.cuda.synchronize()
-        loss, ref_loss = loss.detach().double(), ref_loss.double()
-        e_loss = (loss - ref_loss).abs()
-        require(bool((e_loss <= TOL * torch.clamp(ref_loss.abs(), min=1.0)).all()),
-                f"pairwise loss off in {c}: {e_loss.max().item()}")
-        g_ref_max = ref_grad.double().abs().max(1).values
-        e_grad = (grad.double() - ref_grad.double()).abs().max(1).values
-        require(bool((e_grad <= TOL * g_ref_max).all()),
-                f"pairwise gradient off in {c}: {e_grad.max().item()}")
-        if c["case"] == "all-masked":
-            require(bool((loss == 0).all()) and not bool(grad.any()), c)
-        err_fwd = max(err_fwd, float(e_loss.max()))
-        err_bwd = max(err_bwd, float(e_grad.max()))
-        summary.append([c["case"], c["b"], c["n"], "hard" if c["hard"] else "soft",
-                        float(e_loss.max()), float(e_grad.max()),
-                        float(g_ref_max.max())])
+        ref_loss, ref_grad = ref_loss.double(), ref_grad.double()
+        md = m.double()
+        count = md.sum(1) ** 2 - (md * md).sum(1)      # sum of m_i m_j over i != j
+        require(torch.equal(count_f, count) and torch.equal(count_w, count),
+                f"pair counts off in {c}")
+        require(torch.equal(grad_f, grad), f"autograd's gradient is not the saved one in {c}")
+        e = {}
+        e["fused_loss"], e["fused_grad"] = check_pairwise(torch, c, loss, grad, ref_loss, ref_grad)
+        e["fwd_loss"], _ = check_pairwise(torch, c, loss_only, None, ref_loss, ref_grad)
+        for key, val in e.items():
+            errs[key] = max(errs[key], val)
+        summary.append([c["case"], c["b"], c["n"], "hard" if c["hard"] else "soft"]
+                       + [e[k] for k in errs] + [float(ref_loss.abs().min()),
+                                                 float(ref_grad.abs().max())])
     emit(phase="kernel_vs_plain", kernel="pairwise_rank", cases=len(cases),
-         tolerance={"loss": "1e-5*max(1,|loss|)",
+         tolerance={"loss": "1e-5*max(1,|loss|); well-ranked hard cohorts also "
+                            "1e-5*|loss|",
                     "gradient": "1e-5*max|g_ref| of its row"},
-         max_abs_err_fwd=err_fwd, max_abs_err_bwd=err_bwd,
-         results=[["case", "B", "N", "targets", "loss_err", "grad_err",
-                   "max|g_ref|"]] + summary)
-    return err_fwd, err_bwd
+         max_abs_err_fused_loss=errs["fused_loss"],
+         max_abs_err_fused_grad=errs["fused_grad"],
+         max_abs_err_fwd_loss=errs["fwd_loss"],
+         results=[["case", "B", "N", "targets", *errs, "min|loss_ref|", "max|g_ref|"]]
+         + summary)
+    return errs
 
 
 def phase_pairwise_timings(torch, card):
-    """Forward and gradient kernels at the IL shape (B=16 cohorts of 30,
-    hard targets) and at one large cohort; the plain version beside them
-    (its gradient is its forward plus autograd), except at 65,536 where its
-    N^2 matrices do not fit."""
+    """At the IL shape (B=16 cohorts of 30, hard targets) and three large
+    ones: the fused launch (loss and gradient) and the loss-only launch,
+    the plain version beside them (its gradient is its forward plus
+    autograd), except at 65,536 where its N^2 matrices do not fit.  The
+    design the fused launch replaced (a loss launch, then a gradient
+    launch) is timed from a checkout of it by
+    ``scripts/pairwise_rank_precision.py``."""
     from repro_torch.kernels.pairwise_rank.kernel import (
-        pairwise_rank_bwd_cuda,
+        pairwise_rank_fused_cuda,
         pairwise_rank_fwd_cuda,
     )
     from repro_torch.kernels.pairwise_rank.ref import pairwise_rank_ref
@@ -641,22 +723,27 @@ def phase_pairwise_timings(torch, card):
     for label, b, n in (("il_b16_n30", 16, 30), ("b1_n8192", 1, 8192),
                         ("b1_n65536", 1, 65536), ("b70000_n8", 70_000, 8)):
         s, t, m = pairwise_inputs(torch, b, n, seed=b + n, masked_frac=0.0)
-        _, count = pairwise_rank_fwd_cuda(s, t, m, hard=True)
-        g = torch.ones(b, device="cuda")
+        routes = {"fused": (lambda: pairwise_rank_fused_cuda(s, t, m, hard=True),
+                            lambda: pairwise_plain(torch, s, t, m, True)),
+                  "fwd": (lambda: pairwise_rank_fwd_cuda(s, t, m, hard=True),
+                          lambda: pairwise_rank_ref(s, t, m, True))}
         out = {}
-        for kind in ("fwd", "bwd"):
-            if kind == "fwd":
-                fn = lambda: pairwise_rank_fwd_cuda(s, t, m, hard=True)
-                plain = lambda: pairwise_rank_ref(s, t, m, True)
-            else:
-                fn = lambda: pairwise_rank_bwd_cuda(s, t, m, count, g, hard=True)
-                plain = lambda: pairwise_plain(torch, s, t, m, True)
+        for kind, (fn, plain) in routes.items():
             bound, bound_by = pairwise_bound_ms(torch, m, kind, True)
             out[kind] = dict(b=b, n=n, hard=True, ms=cuda_ms(torch, fn),
                              plain_ms=cuda_ms(torch, plain) if n <= 8192 else None,
                              bound_ms=bound, bound_by=bound_by, library_ms=None)
+            if label == "il_b16_n30":      # launch-bound: where the host's time goes
+                out[kind]["host_us"] = host_us(torch, fn)
             emit(phase="timing", kernel=f"pairwise_rank_{kind}", shape=label,
                  card=card, **out[kind])
+        if label == "il_b16_n30":
+            out["host_us_torch_empty_x3"] = host_us(torch, lambda: (
+                torch.empty(b, device="cuda"),
+                torch.empty(b, dtype=torch.float64, device="cuda"),
+                torch.empty((b, n), device="cuda")))
+            emit(phase="timing", kernel="torch_empty_x3", shape=label, card=card,
+                 host_us=out["host_us_torch_empty_x3"])
         rows[label] = out
     return rows
 
@@ -752,8 +839,11 @@ def phase_il_path(torch, data):
     torch.cuda.synchronize()
     stages["pretrain_s"] = time.perf_counter() - t0
     pre_counts = read_counts()
-    require(pre_counts["pairwise_rank_fwd"] == 2000, pre_counts)
-    require(pre_counts["pairwise_rank_bwd"] == 2000, pre_counts)
+    # one pair-kernel launch a step: the fused loss and gradient
+    require(pre_counts["pairwise_rank_fused"] == 2000, pre_counts)
+    require(pre_counts["pairwise_rank_fwd"] == 0, pre_counts)
+    pair_per_step = sum(pre_counts[k] for k in ("pairwise_rank_fused",
+                                                "pairwise_rank_fwd")) / 2000
     require(hist["rank_acc"][-1] > hist["rank_acc"][0], hist["rank_acc"])
     for key, t in q.items():
         require(t.is_cuda and bool(torch.isfinite(t).all()), key)
@@ -773,7 +863,7 @@ def phase_il_path(torch, data):
     emit(phase="il_path", demos=len(demos), recorded=len(demos) - 200,
          max_cohort=max(len(d.states) for d in demos), steps=2000, batch=16,
          hist=hist, seconds=stages, launches=counts,
-         pretrain_launches=pre_counts)
+         pretrain_launches=pre_counts, pair_kernel_launches_per_step=pair_per_step)
     return counts, demos, q
 
 
@@ -867,26 +957,31 @@ WEEK_S = 7 * DAY_S
 
 
 def fleet_args(torch, tr, src, t):
-    """The kernel's four inputs for source devices ``src`` at absolute times
-    ``t``: the trace's resident segment table and the split queries."""
+    """The kernel's inputs for source devices ``src`` at absolute times
+    ``t``: the trace's resident segment table and the packed query records
+    on the card."""
     import numpy as np
 
-    from repro_torch.kernels.fleet_state.ops import _split_times
+    from repro_torch.kernels.fleet_state.ops import _split_times, pack_queries
 
     segs = tr.resident("cuda")
+    require(np.array_equal(segs.offsets.cpu().numpy(), tr.offsets),
+            "uploaded offsets differ from the trace's")
     qi, qf = _split_times(np.asarray(t, np.float64) % tr.period_s)
-    dev = torch.device("cuda")
-    return (segs,
-            torch.as_tensor(np.asarray(src).astype(np.int32), device=dev),
-            torch.as_tensor(qi, device=dev), torch.as_tensor(qf, device=dev))
+    q = pack_queries(np.asarray(src).astype(np.int32), qi, qf)
+    return segs, torch.as_tensor(q, device="cuda")
 
 
 def fleet_plain(args):
-    """The plain version on the kernel's inputs (the table's column views)."""
+    """The plain version on the kernel's inputs (the table's column views
+    and the records' columns)."""
+    import torch
+
     from repro_torch.kernels.fleet_state.ref import segment_index_ref
 
-    segs, src, qi, qf = args
-    return segment_index_ref(segs.dev, segs.ti, segs.tf, src, qi, qf)
+    segs, q = args
+    return segment_index_ref(segs.dev, segs.ti, segs.tf, q[:, 0], q[:, 1],
+                             q[:, 2].view(torch.float32))
 
 
 def fleet_args_resampled(torch, tr, n, seed, t_s):
@@ -927,13 +1022,13 @@ def random_events(rng, n_dev, max_segs, period, fractional=False, one_seg=0):
     return events
 
 
-def fleet_bound_ms(n, s):
+def fleet_bound_ms(n, s, d):
     """Least time for one call: the bytes (src, qi, qf in and idx out per
     query, the three segment arrays) over HBM bandwidth, or the search's
-    operations (ceil(log2(S + 1)) probes of ~8 compares and selects each)
-    over the fp32 rate, whichever is larger."""
+    operations (ceil(log2(S / D + 1)) probes within the query's device, of
+    ~8 compares and selects each) over the fp32 rate, whichever is larger."""
     nbytes = 16.0 * n + 12.0 * s
-    ops = 8.0 * n * math.ceil(math.log2(s + 1))
+    ops = 8.0 * n * math.ceil(math.log2(s / d + 1))
     t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -960,7 +1055,7 @@ def phase_fleet_state_vs_plain(torch, big):
         sample_trace_path,
         synthesize_trace,
     )
-    from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
+    from repro_torch.kernels.fleet_state.kernel import segment_index_cuda, segment_index_lookup
 
     week = synthesize_trace(SyntheticTraceSpec(n_devices=32, days=7, seed=11))
     livelab = read_trace_csv(sample_trace_path())
@@ -993,7 +1088,12 @@ def phase_fleet_state_vs_plain(torch, big):
         require(got.dtype == torch.int32 and bool(torch.equal(got, want)),
                 f"fleet_state differs from its plain version on {name}: "
                 f"{int((got != want).sum())} of {len(want)}")
-        summary.append([name, tr.n_segments, int(args[1].numel())])
+        # the host path: pinned upload, launch, pinned download, one call
+        q = args[1].cpu().numpy()
+        host = segment_index_lookup(args[0], q[:, 0], q[:, 1], q[:, 2].view(np.float32))
+        require(host.dtype == np.int32 and np.array_equal(host, want.cpu().numpy()),
+                f"fleet_state's host lookup differs from its plain version on {name}")
+        summary.append([name, tr.n_segments, int(args[1].shape[0])])
     emit(phase="kernel_vs_plain", kernel="fleet_state", cases=len(cases),
          tolerance="exact", max_abs_err=0, large_trace_segments=big.n_segments,
          results=[["case", "S", "N"]] + summary)
@@ -1033,18 +1133,59 @@ def phase_fleet_state_timings(torch, card, big):
         # the plain count at 1e6 x 3e5 segments is 3e11 compares: not timed
         small = n * tr.n_segments <= 1e10
         rows[label] = dict(
-            n=n, s=tr.n_segments,
+            n=n, s=tr.n_segments, d=tr.n_devices,
             ms=cuda_ms(torch, lambda: segment_index_cuda(*args)),
             plain_ms=(cuda_ms(torch, lambda: fleet_plain(args))
                       if small else None),
             library_ms=cuda_ms(torch, lambda: torch.searchsorted(
                 seg_key, q_key, right=True)),
             library_agrees=bool(torch.equal(lib_idx.int(), got)))
+        rows[label]["kernel_vs_library"] = rows[label]["ms"] / rows[label]["library_ms"]
         rows[label]["bound_ms"], rows[label]["bound_by"] = fleet_bound_ms(
-            n, tr.n_segments)
+            n, tr.n_segments, tr.n_devices)
         emit(phase="timing", kernel="fleet_state", shape=label, card=card,
              **rows[label])
     return rows
+
+
+def phase_fleet_state_host(torch, card, calls=1000):
+    """The op-level lookup the trace layer makes every round
+    (``ops.segment_index``: wrap and split on the host, one upload, the
+    launch, one download, one synchronise) at the smoke fleet's 1000
+    devices on the synthetic week, host included (``time.perf_counter``
+    over ``calls`` calls after 100 of warm-up), beside the reference's host
+    path: numpy's ``searchsorted`` over the f64 key ``dev * period + t``
+    (computed here with numpy alone)."""
+    import numpy as np
+
+    from repro_torch.fl.traces import SyntheticTraceSpec, synthesize_trace
+    from repro_torch.kernels.fleet_state import ops
+
+    tr = synthesize_trace(SyntheticTraceSpec(n_devices=32, days=7, seed=11))
+    fleet = tr.resample(1000, seed=1, device="cuda")
+    t = 5 * 3600.0 + fleet.phase_s
+    segs = tr.resident("cuda")
+    key = tr._seg_dev * tr.period_s + tr.t_start
+
+    def op():
+        return ops.segment_index(segs, tr.period_s, fleet.src, t)
+
+    def numpy_path():
+        return np.searchsorted(key, fleet.src * tr.period_s + t % tr.period_s,
+                               side="right") - 1
+
+    out = {}
+    for name, fn in (("op", op), ("numpy_searchsorted", numpy_path)):
+        for _ in range(100):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0) / calls
+    require(np.array_equal(op(), numpy_path()), "op and numpy searchsorted disagree")
+    emit(phase="timing", kernel="fleet_state", shape="op_host_included_n1000", card=card,
+         n=1000, s=tr.n_segments, calls=calls, **out)
+    return out
 
 
 def check_async_history(torch, srv, hist, k):
@@ -1922,14 +2063,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
+    only = sys.argv[1:]
+    unknown = sorted(set(only) - set(STEPS))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown steps {unknown}; the steps are {list(STEPS)}")
     sys.path.insert(0, str(ROOT / "src"))
     card = card_line()
     try:
-        kernels = run_phases(torch, card)
+        kernels = run_phases(torch, card, only)
     except BaseException as e:
         print(summary_line(False, e), flush=True)
         raise
     print(summary_line(True), flush=True)
+    if only:
+        print(card, flush=True)
+        return 0
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1949,13 +2097,23 @@ def ptxas_lines(log):
     return out
 
 
-def run_phases(torch, card):
+STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attention",
+         "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
+         "path3_baselines", "path4_trace", "path5_async", "path6_lm", "path7_ssm")
+
+
+def run_phases(torch, card, only=()):
+    """Every step, or only those named in ``only`` (and the build); returns
+    the kernels line's entries after a whole run, None after a part."""
     from repro_torch.kernels.flash_attention import kernel as flash_attention_kernel
     from repro_torch.kernels.fleet_state import kernel as fleet_state_kernel
     from repro_torch.kernels.mamba import kernel as mamba_kernel
     from repro_torch.kernels.pairwise_rank import kernel as pairwise_rank_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv6_kernel
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
+
+    def want(name):
+        return not only or name in only
 
     # ---- 1: device and build -------------------------------------------
     with step("build"):
@@ -1976,62 +2134,80 @@ def run_phases(torch, card):
                  library=str(path.relative_to(ROOT)), ptxas=ptxas_lines(lib.build_log))
 
     # ---- 2-3: kernels against their plain versions, timings -----------
-    with step("select_topk"):
-        max_err = phase_kernel_vs_plain(torch)
-        timings = phase_timings(torch, card)
-    with step("pairwise_rank"):
-        pr_err_fwd, pr_err_bwd = phase_pairwise_vs_plain(torch)
-        pr_timings = phase_pairwise_timings(torch, card)
-    with step("fleet_state"):
-        t0 = time.perf_counter()
-        big = large_trace()
-        emit(phase="large_trace", devices=big.n_devices, segments=big.n_segments,
-             seconds=time.perf_counter() - t0)
-        fs_err = phase_fleet_state_vs_plain(torch, big)
-        fs_timings = phase_fleet_state_timings(torch, card, big)
-    with step("flash_attention"):
-        fa_err = phase_flash_vs_plain(torch)
-        fa_timings = phase_flash_timings(torch, card)
-    with step("mamba_rwkv6"):
-        scan_err = phase_scan_vs_plain(torch)
-        wkv_err = phase_wkv_vs_plain(torch)
-        ssm_timings = phase_ssm_timings(torch, card)
+    if want("select_topk"):
+        with step("select_topk"):
+            max_err = phase_kernel_vs_plain(torch)
+            timings = phase_timings(torch, card)
+    if want("pairwise_rank"):
+        with step("pairwise_rank"):
+            pr_errs = phase_pairwise_vs_plain(torch)
+            pr_timings = phase_pairwise_timings(torch, card)
+    if want("fleet_state"):
+        with step("fleet_state"):
+            t0 = time.perf_counter()
+            big = large_trace()
+            emit(phase="large_trace", devices=big.n_devices, segments=big.n_segments,
+                 seconds=time.perf_counter() - t0)
+            fs_err = phase_fleet_state_vs_plain(torch, big)
+            fs_timings = phase_fleet_state_timings(torch, card, big)
+            fs_host = phase_fleet_state_host(torch, card)
+    if want("flash_attention"):
+        with step("flash_attention"):
+            fa_err = phase_flash_vs_plain(torch)
+            fa_timings = phase_flash_timings(torch, card)
+    if want("mamba_rwkv6"):
+        with step("mamba_rwkv6"):
+            scan_err = phase_scan_vs_plain(torch)
+            wkv_err = phase_wkv_vs_plain(torch)
+            ssm_timings = phase_ssm_timings(torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
-    with step("cpu_vs_card"):
-        phase_cpu_agreement(torch)
-        phase_cpu_agreement_policies(torch, small_data(4000, 50))
-        phase_cpu_agreement_il(torch)
-        phase_cpu_agreement_async(torch)
-        phase_cpu_agreement_lm(torch)
-    with step("full_width"):
-        phase_full_width_agreement(torch)
+    if want("cpu_vs_card"):
+        with step("cpu_vs_card"):
+            phase_cpu_agreement(torch)
+            phase_cpu_agreement_policies(torch, small_data(4000, 50))
+            phase_cpu_agreement_il(torch)
+            phase_cpu_agreement_async(torch)
+            phase_cpu_agreement_lm(torch)
+    if want("full_width"):
+        with step("full_width"):
+            phase_full_width_agreement(torch)
 
     # ---- 5-11: the paths, each with its own launch counts --------------
-    t0 = time.perf_counter()
-    data = small_data(64_000, 1000)
-    emit(phase="main_data", samples=64_000, clients=1000,
-         seconds=time.perf_counter() - t0)
-    with step("path1_sync"):
-        sync_counts, srv, policy = phase_main_path(torch, data)
-        phase_profile(torch, srv, policy)
-    with step("path2_il"):
-        il_counts, demos, q = phase_il_path(torch, data)
-        phase_il_profile(torch, demos, q)
-    with step("path3_baselines"):
-        phase_baselines(torch, data)
-    with step("path4_trace"):
-        trace_counts = phase_trace_path(torch, data)
-    with step("path5_async"):
-        async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
-        phase_async_profile(torch, async_srv, async_policy)
-        phase_async_oracle(torch, data)
-    with step("path6_lm"):
-        lm_counts, lm_runs = phase_serving_path(torch)
-        phase_serve_profile(torch)
-    with step("path7_ssm"):
-        ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
-        phase_ssm_serve_profile(torch)
+    if any(want(name) for name in STEPS if name.startswith("path")):
+        t0 = time.perf_counter()
+        data = small_data(64_000, 1000)
+        emit(phase="main_data", samples=64_000, clients=1000,
+             seconds=time.perf_counter() - t0)
+    if want("path1_sync"):
+        with step("path1_sync"):
+            sync_counts, srv, policy = phase_main_path(torch, data)
+            phase_profile(torch, srv, policy)
+    if want("path2_il"):
+        with step("path2_il"):
+            il_counts, demos, q = phase_il_path(torch, data)
+            phase_il_profile(torch, demos, q)
+    if want("path3_baselines"):
+        with step("path3_baselines"):
+            phase_baselines(torch, data)
+    if want("path4_trace"):
+        with step("path4_trace"):
+            trace_counts = phase_trace_path(torch, data)
+    if want("path5_async"):
+        with step("path5_async"):
+            async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
+            phase_async_profile(torch, async_srv, async_policy)
+            phase_async_oracle(torch, data)
+    if want("path6_lm"):
+        with step("path6_lm"):
+            lm_counts, lm_runs = phase_serving_path(torch)
+            phase_serve_profile(torch)
+    if want("path7_ssm"):
+        with step("path7_ssm"):
+            ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
+            phase_ssm_serve_profile(torch)
+    if only:
+        return None
 
     # ---- 12: kernels line ----------------------------------------------
     main_shape = timings["main_probe_set"]
@@ -2043,19 +2219,26 @@ def run_phases(torch, card):
                      "src/repro/kernels/select_topk/kernel.py:98",
                      sync_counts["select_topk"], max_err, main_shape,
                      {k: main_shape[k] for k in ("n", "f", "h", "k")}),
-        kernel_entry("pairwise_rank_fwd", "src/repro_torch/csrc/pairwise_rank.cu",
-                     "src/repro/kernels/pairwise_rank/kernel.py:61",
-                     il_counts["pairwise_rank_fwd"], pr_err_fwd, il["fwd"],
-                     {"b": 16, "n": 30, "hard": True}),
-        kernel_entry("pairwise_rank_bwd", "src/repro_torch/csrc/pairwise_rank.cu",
-                     "src/repro/kernels/pairwise_rank/kernel.py:61",
-                     il_counts["pairwise_rank_bwd"], pr_err_bwd, il["bwd"],
-                     {"b": 16, "n": 30, "hard": True}),
+        dict(kernel_entry("pairwise_rank", "src/repro_torch/csrc/pairwise_rank.cu",
+                          "src/repro/kernels/pairwise_rank/kernel.py:61",
+                          il_counts["pairwise_rank_fused"],
+                          max(pr_errs["fused_loss"], pr_errs["fused_grad"]), il["fused"],
+                          {"b": 16, "n": 30, "hard": True}),
+             design="fused loss and gradient, one launch a training step",
+             library_note="none: no single PyTorch call forms the pair matrices "
+                          "and reduces them",
+             max_abs_err_by_route=pr_errs,
+             loss_only_route={key: il["fwd"][key] for key in
+                              ("ms", "plain_ms", "bound_ms", "bound_by")},
+             launches_loss_only_route=il_counts["pairwise_rank_fwd"]),
         dict(kernel_entry("fleet_state", "src/repro_torch/csrc/fleet_state.cu",
                           "src/repro/kernels/fleet_state/kernel.py:52",
                           sum(r["launches"]["fleet_state"] for key, r in async_runs.items()
                               if "trace" in key),
                           fs_err, fs_main, {"n": 1000, "s": fs_main["s"]}),
+             op_host_included_ms=fs_host["op_ms"],
+             numpy_searchsorted_ms=fs_host["numpy_searchsorted_ms"],
+             kernel_vs_library={k: r["kernel_vs_library"] for k, r in fs_timings.items()},
              launches_by_path={"trace_sync": trace_counts["fleet_state"],
                                **{f"async:{k}": r["launches"]["fleet_state"]
                                   for k, r in async_runs.items()}}),

@@ -24,7 +24,8 @@ of the period.
 at time t" query is one segment lookup over the whole fleet
 (:func:`repro_torch.kernels.fleet_state.ops.segment_index`): the CUDA kernel
 on the card, its plain PyTorch version on the CPU.  The split segment arrays
-are uploaded once per device (:meth:`Trace.resident`).
+and the CSR offsets, which narrow each query's search to its own device, are
+uploaded once per device (:meth:`Trace.resident`).
 
 **Resampling.**  :meth:`Trace.resample` bootstraps the source devices (draw
 with replacement + per-device phase jitter) to any fleet size, with the
@@ -115,14 +116,16 @@ class Trace:
     # ------------------------------------------------------------------
     def resident(self, device: DeviceLike = None):
         """The split segment arrays on ``device``
-        (:class:`~repro_torch.kernels.fleet_state.ops.SegmentTable`),
-        uploaded and checked for sortedness on first use, then cached."""
+        (:class:`~repro_torch.kernels.fleet_state.ops.SegmentTable`) with
+        their CSR offsets, uploaded on first use (checked for sortedness and
+        against :attr:`offsets`), then cached."""
         from repro_torch.kernels.fleet_state.ops import upload_segments
 
         dev = resolve_device(device)
         key = str(dev)
         if key not in self._resident:
-            self._resident[key] = upload_segments(self._seg_dev, self.t_start, dev)
+            self._resident[key] = upload_segments(
+                self._seg_dev, self.t_start, dev, offsets=self.offsets)
         return self._resident[key]
 
     def states_at(self, devices: np.ndarray, t_s: np.ndarray,

@@ -3,9 +3,9 @@
     select_topk    fused Q-net scoring -> top-K cohort selection (CUDA C++,
                    csrc/select_topk.cu); ops.select_topk is the port's
                    selection path
-    pairwise_rank  masked pairwise RankNet loss, forward and score gradient
-                   (CUDA C++, csrc/pairwise_rank.cu); ops.pairwise_rank is
-                   the imitation-learning objective
+    pairwise_rank  masked pairwise RankNet loss and its score gradient in
+                   one launch (CUDA C++, csrc/pairwise_rank.cu);
+                   ops.pairwise_rank is the imitation-learning objective
     fleet_state    trace segment lookup, the state of every fleet device at
                    its time (CUDA C++, csrc/fleet_state.cu); ops.segment_index
                    is every trace scenario's mask and load query

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]                  # src/repro_torch
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
@@ -77,9 +79,28 @@ class CudaLibrary:
         return out
 
     def load(self) -> ctypes.CDLL:
+        lib = self._lib                    # set once, never reset: no lock needed
+        if lib is not None:
+            return lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
                 self._bind(lib)
                 self._lib = lib
             return self._lib
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, read without
+    building a ``torch.cuda.Stream`` (what a launch passes to C)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def call_on_device(index: int, fn, *args):
+    """``fn(*args)`` with device ``index`` current, switching devices only
+    when another one is."""
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)

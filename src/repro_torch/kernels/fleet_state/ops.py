@@ -8,34 +8,30 @@ CUDA kernel (:func:`~repro_torch.kernels.fleet_state.kernel.segment_index_cuda`)
 on the CPU its plain version.
 
 A trace's segment arrays are split once (:func:`_split_times`), checked for
-sortedness and uploaded once per device (:func:`upload_segments`, cached by
-:meth:`~repro_torch.fl.traces.trace.Trace.resident`); the queries are split
-and uploaded per call.  The period wrap, the f64 next-flip arithmetic of
-:func:`fleet_state_at` and the int64 result stay numpy on the host, exactly
-as in the reference, so the virtual clock never loses whole-second
-exactness to f32.
+sortedness and against the trace's CSR offsets, and uploaded once per device
+(:func:`upload_segments`, cached by
+:meth:`~repro_torch.fl.traces.trace.Trace.resident`); each call wraps and
+splits its queries on the host and makes one upload and one download
+(:func:`~repro_torch.kernels.fleet_state.kernel.segment_index_lookup`).  The
+period wrap, the f64 next-flip arithmetic of :func:`fleet_state_at` and the
+int64 result stay numpy on the host, exactly as in the reference, so the
+virtual clock never loses whole-second exactness to f32.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.fleet_state.kernel import segment_index_cuda
+from repro_torch.kernels.fleet_state.kernel import (  # noqa: F401 (re-exported)
+    SegmentTable,
+    pack_queries,
+    segment_index_lookup,
+)
 
-
-class SegmentTable(NamedTuple):
-    """A trace's split segment starts on one device, lexicographically
-    sorted: ``rec`` (S, 4) int32 holds one 16-byte record per segment
-    (device index, whole seconds, the float32 fraction's bits, 0), which the
-    kernel reads; ``dev``/``ti`` (int32) and ``tf`` (float32) are views of
-    its columns, which the plain version reads."""
-
-    rec: torch.Tensor
-    dev: torch.Tensor
-    ti: torch.Tensor
-    tf: torch.Tensor
+# the bucket table's entries, at most (64 MB of int32)
+MAX_BUCKET_ENTRIES = 1 << 24
 
 
 def _split_times(t: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -59,18 +55,49 @@ def check_sorted(seg_dev: np.ndarray, seg_ti: np.ndarray,
                          f"segment {bad} -> {bad + 1}")
 
 
-def upload_segments(seg_dev: np.ndarray, seg_t: np.ndarray,
-                    device: torch.device) -> SegmentTable:
-    """Split, check and upload a trace's segment arrays to ``device``."""
+def _buckets(sdev: np.ndarray, sti: np.ndarray, n_dev: int) -> Tuple[np.ndarray, int]:
+    """The kernel's per-device bucket table: K buckets of ``2**shift``
+    seconds a device, K the average segments a device rounded up to a power
+    of two (at most 4096, and at most ``MAX_BUCKET_ENTRIES`` in all),
+    ``2**shift * K`` past every start; entry ``[d, k]`` is the global index
+    of device ``d``'s first segment starting at or after ``k << shift`` (so
+    column 0 and column K are the CSR offsets)."""
+    s, d = len(sdev), max(n_dev, 1)
+    k = 1 << min(12, max(0, (-(-s // d) - 1).bit_length()),
+                 max(0, (MAX_BUCKET_ENTRIES // d).bit_length() - 2))
+    span = int(sti.max()) + 1 if s else 1
+    shift = max(0, (-(-span // k) - 1).bit_length())
+    step = np.int64(k) << shift                    # > every start
+    key = sdev.astype(np.int64) * (step + 1) + sti
+    bounds = (np.arange(n_dev, dtype=np.int64)[:, None] * (step + 1)
+              + (np.arange(k + 1, dtype=np.int64) << shift)[None, :])
+    return np.searchsorted(key, bounds, side="left").astype(np.int32), shift
+
+
+def upload_segments(seg_dev: np.ndarray, seg_t: np.ndarray, device: torch.device,
+                    offsets: Optional[np.ndarray] = None) -> SegmentTable:
+    """Split, check and upload a trace's segment arrays to ``device``, with
+    the CSR offsets derived from the sorted ``seg_dev`` (raises if they
+    differ from the trace's own ``offsets``, when given) and the kernel's
+    per-device bucket table."""
     sdev = np.asarray(seg_dev, np.int64)
-    if len(sdev) and (sdev.min() < 0 or sdev.max() > np.iinfo(np.int32).max):
+    if len(sdev) and (sdev.min() < 0 or sdev.max() > np.iinfo(np.int32).max - 1):
         raise ValueError("segment device indices must fit int32 and be >= 0")
-    sti, stf = _split_times(np.asarray(seg_t, np.float64))
+    seg_t = np.asarray(seg_t, np.float64)
+    if len(seg_t) and not (seg_t.min() >= 0 and seg_t.max() < 2.0**30):
+        raise ValueError("segment start times must lie in [0, 2**30) seconds")
+    sti, stf = _split_times(seg_t)
     sdev = sdev.astype(np.int32)
     check_sorted(sdev, sti, stf)
+    n_dev = int(sdev[-1]) + 1 if len(sdev) else 0
+    off = np.searchsorted(sdev, np.arange(n_dev + 1), side="left").astype(np.int32)
+    if offsets is not None and not np.array_equal(off, np.asarray(offsets)):
+        raise ValueError("the segments' CSR offsets differ from the trace's offsets")
+    bkt, shift = _buckets(sdev, sti, n_dev)
     rec = np.stack([sdev, sti, stf.view(np.int32), np.zeros_like(sdev)], axis=1)
-    rec = torch.as_tensor(rec, device=device)
-    return SegmentTable(rec, rec[:, 0], rec[:, 1], rec[:, 2].view(torch.float32))
+    return SegmentTable(torch.as_tensor(rec, device=device),
+                        torch.as_tensor(off, device=device),
+                        torch.as_tensor(bkt, device=device), shift)
 
 
 def segment_index(segs: SegmentTable, period_s: float, src: np.ndarray,
@@ -81,12 +108,8 @@ def segment_index(segs: SegmentTable, period_s: float, src: np.ndarray,
     tau = np.asarray(t_s, dtype=np.float64) % period_s
     src_b, tau_b = np.broadcast_arrays(np.asarray(src, dtype=np.int64), tau)
     qi, qf = _split_times(tau_b.reshape(-1))
-    dev = segs.dev.device
-    idx = segment_index_cuda(
-        segs,
-        torch.as_tensor(src_b.reshape(-1).astype(np.int32), device=dev),
-        torch.as_tensor(qi, device=dev), torch.as_tensor(qf, device=dev))
-    return idx.cpu().numpy().astype(np.int64).reshape(src_b.shape)
+    idx = segment_index_lookup(segs, src_b.reshape(-1).astype(np.int32), qi, qf)
+    return idx.astype(np.int64).reshape(src_b.shape)
 
 
 def fleet_state_at(segs: SegmentTable, seg_state: np.ndarray,

@@ -10,7 +10,9 @@ batch row:
 
 with ``pm_ij = m_i m_j`` and the diagonal knocked out.  This is the
 semantics the CUDA kernels (:mod:`repro_torch.kernels.pairwise_rank.kernel`)
-are held to; its autograd gradient is what the gradient kernel is held to.
+are held to; its autograd gradient is what the gradient kernels are held to.
+:func:`pairwise_rank_fused_ref` is the fused launch's function in plain
+form: loss, count and the gradient as the row reduction the kernels compute.
 It materialises (B, N, N) matrices.  It computes in float32, or in float64
 when the scores are float64 (the exact reference a card check can compare
 an fp32 kernel with).
@@ -51,3 +53,21 @@ def pairwise_rank_ref(scores: torch.Tensor, targets: torch.Tensor,
     (fp64 for fp64 scores)."""
     total, count = pairwise_rank_sums(scores, targets, mask, hard)
     return total / torch.clamp(count, min=1.0)
+
+
+def pairwise_rank_fused_ref(scores: torch.Tensor, targets: torch.Tensor,
+                            mask: torch.Tensor, hard: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """scores, targets, mask (B, N) -> (loss (B,), count (B,) float64, grad
+    (B, N)): the mean pair BCE, the pair count and the gradient of each
+    row's loss with respect to its scores, ``2 / max(count, 1) * sum_j
+    pm_ij (sigmoid(s_i - s_j) - tgt_ij)`` (fp32, fp64 for fp64 scores)."""
+    dt = torch.float64 if scores.dtype == torch.float64 else torch.float32
+    s, t, m = scores.detach().to(dt), targets.to(dt), mask.to(dt)
+    total, count = pairwise_rank_sums(s, t, m, hard)
+    denom = torch.clamp(count, min=1.0)
+    eye = torch.eye(s.shape[-1], dtype=dt, device=s.device)
+    pm = m[..., :, None] * m[..., None, :] * (1.0 - eye)
+    terms = torch.sigmoid(s[..., :, None] - s[..., None, :]) - pair_targets(t, hard)
+    grad = 2.0 / denom[..., None] * (pm * terms).sum(-1)
+    return total / denom, count.double(), grad

@@ -28,8 +28,10 @@ from repro.kernels.fleet_state.ref import segment_index_ref as jax_ref
 
 import repro_torch.fl.traces as ttr
 from repro_torch.kernels.fleet_state import (
+    pack_queries,
     segment_index,
     segment_index_cuda,
+    segment_index_lookup,
     segment_index_ref,
     upload_segments,
 )
@@ -221,12 +223,15 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     events = _random_trace(seed=6, n_dev=3, max_segs=5, period=1000.0)
     tt = ttr.compile_events(events, 1000.0)
     segs = tt.resident("cpu")
-    src = torch.tensor([0, 1, 2, -1], dtype=torch.int32)
-    qi = torch.tensor([0, 10, 999, 0], dtype=torch.int32)
-    qf = torch.zeros(4, dtype=torch.float32)
+    src = np.array([0, 1, 2, -1], np.int32)
+    qi = np.array([0, 10, 999, 0], np.int32)
+    qf = np.zeros(4, np.float32)
     before = segment_index_cuda.launches
-    got = segment_index_cuda(segs, src, qi, qf)
-    assert torch.equal(got, segment_index_ref(segs.dev, segs.ti, segs.tf, src, qi, qf))
+    got = segment_index_cuda(segs, torch.as_tensor(pack_queries(src, qi, qf)))
+    want = segment_index_ref(segs.dev, segs.ti, segs.tf, torch.as_tensor(src),
+                             torch.as_tensor(qi), torch.as_tensor(qf))
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(segment_index_lookup(segs, src, qi, qf), want.numpy())
     assert segment_index_cuda.launches == before
 
 
@@ -243,3 +248,150 @@ def test_upload_checks_sortedness_once():
     assert segs.tf.data_ptr() == segs.rec.data_ptr() + 8      # column views
     tt = ttr.compile_events({"a": [(0.0, 1)], "b": [(0.0, 2), (3.0, 1)]}, 10.0)
     assert tt.resident("cpu") is tt.resident("cpu")        # cached per device
+
+
+# ---------------------------------------------------------------------------
+# the kernel's design: CSR offsets and a search within the query's device
+# ---------------------------------------------------------------------------
+
+
+def _fixture(name):
+    if name == "livelab":
+        return jtr.read_trace_csv(jtr.sample_trace_path()), ttr.read_trace_csv(
+            ttr.sample_trace_path())
+    spec = dict(n_devices=32, days=7, seed=11)
+    return (jtr.synthesize_trace(jtr.SyntheticTraceSpec(**spec)),
+            ttr.synthesize_trace(ttr.SyntheticTraceSpec(**spec)))
+
+
+@pytest.mark.parametrize("name", ["livelab", "synthetic-week"] + [c[0] for c in CASES])
+def test_uploaded_offsets_equal_the_trace_offsets(name):
+    if name in ("livelab", "synthetic-week"):
+        jt, tt = _fixture(name)
+    else:
+        kw = dict(CASES)[name]
+        jt, tt = _both(_random_trace(**kw), kw["period"])
+    segs = tt.resident("cpu")
+    assert segs.offsets.dtype == torch.int32
+    np.testing.assert_array_equal(segs.offsets.numpy(), tt.offsets)
+    np.testing.assert_array_equal(segs.offsets.numpy(), jt.offsets)
+    # the bucket table: columns 0 and K are the offsets, rows non-decreasing,
+    # and K << shift lies past every start
+    bkt = segs.buckets.numpy()
+    np.testing.assert_array_equal(bkt[:, 0], tt.offsets[:-1])
+    np.testing.assert_array_equal(bkt[:, -1], tt.offsets[1:])
+    assert (np.diff(bkt, axis=1) >= 0).all()
+    assert (bkt.shape[1] - 1) << segs.bucket_shift > tt.t_start.max()
+    with pytest.raises(ValueError, match="offsets"):
+        bad = tt.offsets.copy()
+        bad[1] += 1
+        upload_segments(tt._seg_dev, tt.t_start, torch.device("cpu"), offsets=bad)
+
+
+def _emulate_kernel(segs, q):
+    """numpy emulation of fleet_state.cu's index arithmetic, query by query
+    in lockstep: -1 for src < 0, S - 1 for src >= D, else the upper bound of
+    (qi, qf) within the query's bucket of its device's segments, minus
+    one."""
+    rec, bkt, shift = segs.rec.numpy(), segs.buckets.numpy(), segs.bucket_shift
+    s, d_count, k_count = len(rec), bkt.shape[0], bkt.shape[1] - 1
+    d, qi, qf = q[:, 0], q[:, 1], q[:, 2].view(np.float32)
+    own = (d >= 0) & (d < d_count)
+    dc = np.where(own, d, 0)
+    b = np.minimum(np.where(qi < 0, 0, qi >> shift), k_count - 1)
+    lo, hi = bkt[dc, b].astype(np.int64), bkt[dc, b + 1].astype(np.int64)
+    lo, hi = np.where(own, lo, 0), np.where(own, hi, 0)
+    mti, mtf = rec[:, 1], rec[:, 2].view(np.float32)
+    while (lo < hi).any():
+        go = lo < hi
+        mid = np.where(go, lo + ((hi - lo) >> 1), 0)
+        le = (mti[mid] < qi) | ((mti[mid] == qi) & (mtf[mid] <= qf))
+        lo = np.where(go & le, mid + 1, lo)
+        hi = np.where(go & ~le, mid, hi)
+    return np.where(d < 0, -1, np.where(d >= d_count, s - 1, lo - 1))
+
+
+def _raw_table():
+    """Segment arrays no compiled trace has: devices whose first segment
+    starts after 0 (queries before it), a device with no segment, devices
+    with one segment, and fractional starts."""
+    dev = np.array([0, 0, 0, 1, 3, 3, 4, 5, 5, 5], np.int64)
+    t = np.array([5.0, 10.0, 10.5, 2.0, 0.0, 7.25, 86399.0, 1.0, 1.5, 3.0])
+    return dev, t, 86400.0
+
+
+def _raw_queries(rng, n_dev, period):
+    src = np.concatenate([np.repeat(np.arange(-1, n_dev + 2), 12),
+                          rng.integers(-1, n_dev + 2, size=500)])
+    base = np.array([0.0, 1.0, 1.5, 1.99999999, 2.0, 4.99999999, 5.0, 10.25,
+                     10.5, 10.4999, period - 1e-9, period - 1.0])
+    t = np.concatenate([np.tile(base, n_dev + 3), rng.uniform(0.0, 2 * period, 500)])
+    return src, t
+
+
+@pytest.mark.parametrize("name", ["raw-gaps"] + [c[0] for c in CASES])
+def test_two_level_search_equals_every_reference_path(name):
+    rng = np.random.default_rng(17)
+    if name == "raw-gaps":
+        sdev, t_start, period = _raw_table()
+        src, t = _raw_queries(rng, int(sdev.max()) + 1, period)
+        key = sdev * period + t_start
+        segs = upload_segments(sdev, t_start, torch.device("cpu"))
+    else:
+        kw = dict(CASES)[name]
+        jt, tt = _both(_random_trace(**kw), kw["period"])
+        sdev, t_start, period, key = jt._seg_dev, jt.t_start, jt.period_s, jt._seg_key
+        src, t = _edge_queries(tt, rng)
+        src = np.concatenate([src, [-3, tt.n_devices + 7]])
+        t = np.concatenate([t, [50.0, 50.0]])
+        segs = tt.resident("cpu")
+    tau = t % period
+    qi, qf = _split_times(tau)
+    q = pack_queries(src.astype(np.int32), qi, qf)
+    got = _emulate_kernel(segs, q)
+    plain = segment_index_ref(segs.dev, segs.ti, segs.tf, *(
+        torch.as_tensor(a) for a in (src.astype(np.int32), qi, qf))).numpy()
+    np.testing.assert_array_equal(got, plain)
+    sti, stf = _split_times(t_start)
+    xla = np.asarray(jax_ref(sdev.astype(np.int32), sti, stf, src.astype(np.int32),
+                             qi, qf), np.int64)
+    np.testing.assert_array_equal(got, xla)
+    ref_np = jops.segment_index(key, sdev, t_start, period, src, t, impl="numpy")
+    exact = (src >= 0) & (src <= sdev.max()) & (tau < period - 1e-6)
+    np.testing.assert_array_equal(got[exact], ref_np[exact])
+    # the edge rules themselves
+    assert (got[src < 0] == -1).all()
+    assert (got[src > sdev.max()] == len(sdev) - 1).all()
+    if name == "raw-gaps":
+        # before device 1's first segment (2 s): device 0's last segment
+        before = (src == 1) & (tau < 2.0)
+        assert before.any() and (got[before] == 2).all()
+        # device 2 has no segment: device 1's last, at any time
+        assert (got[src == 2] == 3).all()
+
+
+def test_packed_query_records_round_trip_the_split():
+    t = np.array([0.0, 5.99999999, 604799.5, 604799.99999999, 1e-9, 86400.0,
+                  7.25, 3599.999999999])
+    src = np.array([0, 1, -1, 31, 2, 7, 1023, 5], np.int32)
+    qi, qf = _split_times(t)
+    rec = pack_queries(src, qi, qf)
+    assert rec.dtype == np.int32 and rec.shape == (len(t), 4) and rec.flags.c_contiguous
+    np.testing.assert_array_equal(rec[:, 0], src)
+    np.testing.assert_array_equal(rec[:, 1], qi)
+    np.testing.assert_array_equal(rec[:, 2].view(np.float32), qf)
+    assert (rec[:, 3] == 0).all()
+    assert rec[1, 1] == 5 and rec[1, 2].view(np.float32) == np.float32(1.0)
+    # into a larger buffer, and through torch as the kernel reads it
+    buf = np.full((16, 4), -7, np.int32)
+    assert pack_queries(src, qi, qf, out=buf) is not None
+    np.testing.assert_array_equal(buf[:len(t)], rec)
+    assert (buf[len(t):] == -7).all()
+    back = torch.as_tensor(rec)
+    assert torch.equal(back[:, 2].view(torch.float32), torch.as_tensor(qf))
+
+
+def test_upload_refuses_start_times_the_buckets_cannot_hold():
+    for t in ([-1.0, 5.0], [0.0, 2.0**30]):
+        with pytest.raises(ValueError, match="start times"):
+            upload_segments(np.array([0, 0]), np.array(t), torch.device("cpu"))
