@@ -15,8 +15,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. device and build — refuses to run without CUDA, prints the card's name and
    power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
    (``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
-   ``mamba`` and ``rwkv6``, one ``nvcc`` each, started together) and prints
-   ``ptxas``'s registers and spills;
+   ``mamba`` and ``rwkv6``, one ``nvcc`` each, started together), prints
+   ``ptxas``'s registers and spills (and fails if ``mamba`` or ``rwkv6``
+   spills), and the launch configuration of every ``mamba`` and ``rwkv6``
+   instantiation with the resident CTAs per SM that
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports;
 2. every kernel against its plain PyTorch version on the card, with the
    tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
    patterns, hidden widths, feature widths past shared memory (F=96,
@@ -42,14 +45,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    tensor-core kernel, the rest the CUDA-core one);
    ``mamba`` over T in {1, 2, 7, 64, 65, 1000} x inner in {64, 100, 1600} x
    state in {8, 16} x B in {1, 4} x zero and random h0, every lane split of
-   the state (state 1 to 64), path 7's own shape (Hymba's prefill: B=4,
-   T=2048, inner 1600, state 16, B and C strided views of one projection)
-   and a split-T composition (two calls with the state carried against
-   one); ``rwkv6`` over T in {1, 7, 64, 65, 1000} x n in {16, 32, 64} x B*H
-   in {1, 3, 160} x a mild (logw = -exp(N(-2, 1))) and a strong
-   (-exp(N(1, 1)), where the chunked form overflows) decay, n in {5, 48},
-   path 7's own shape (RWKV6-3B's prefill: B=4, T=1024, 40 heads of 64, in
-   the model's layout, views) and a split-T composition;
+   the state (state 1 to 64), path 7's own shapes (Hymba's prefill: B=4,
+   T=2048, inner 1600, state 16, B and C strided views of one projection;
+   a decode step, T=1; B=1 at T=8192) and a split-T composition (two calls
+   with the state carried against one); ``rwkv6`` over T in {1, 7, 64, 65,
+   1000} x n in {16, 32, 64} x B*H in {1, 3, 160} x a mild (logw =
+   -exp(N(-2, 1))) and a strong (-exp(N(1, 1)), where the chunked form
+   overflows) decay, n in {5, 48}, rows that are not contiguous (n = 64,
+   B*H in {3, 160}: the kernel's 4-byte copies), path 7's own shapes in the
+   model's layout, views (RWKV6-3B's prefill: B=4, T=1024, 40 heads of 64,
+   model and strong decay; a decode step; B=1 at T=8192, model and strong
+   decay) and a split-T composition;
 3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
    version's, the least time the card could take (the bound) and a one-call
    PyTorch yardstick: for ``fleet_state`` ``torch.searchsorted`` over the f64
@@ -99,13 +105,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     Yi-6B serve call under ``torch.profiler``;
 11. path 7, SSM serving at full published width and depth in bf16:
     ``serve`` on Hymba-1.5B (batch 4, prompt 2048, past its 1024 window, 32
-    new tokens; exactly 32 ``mamba`` and 32 ``flash_attention`` launches,
-    all of the latter on the tensor-core kernel),
-    on RWKV6-3B (batch 4, prompt 1024, 32 new tokens; exactly 32 ``rwkv6``
-    launches) and a ``ContinuousBatcher`` on RWKV6-3B (4 slots, 8 requests,
-    prompts of 16-128 tokens, 16 new tokens each; no kernel launches), then
+    new tokens; exactly 32 ``flash_attention`` launches, all on the
+    tensor-core kernel, and 32 + 32 x 32 ``mamba`` launches: one per layer
+    in the prefill and in each decode step),
+    on RWKV6-3B (batch 4, prompt 1024, 32 new tokens; exactly 32 + 32 x 32
+    ``rwkv6`` launches) and a ``ContinuousBatcher`` on RWKV6-3B (4 slots, 8
+    requests, prompts of 16-128 tokens, 16 new tokens each; exactly one
+    ``rwkv6`` launch per layer and decode step, nothing else), then
     one serve call of each model (8 new tokens) under ``torch.profiler``
-    (the profiles report each flash kernel's device time apart);
+    (the profiles report each flash kernel's device time apart), and decode
+    alone (batch 4 after a 128-token prefill) by the kernels and with the
+    mixers' plain versions, in turns: kernels, SSM launches, device and
+    wall ms per step;
 12. a ``summary`` line (each step's status, its largest error and its
     device idle shares; printed also when a step fails, before the error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
@@ -166,6 +177,9 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
 H100_FP32_FLOPS = 67e12      # published fp32 (non-tensor) peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12   # published HBM3 bandwidth, SXM
+# exps a second: the special-function units issue 16 a clock on each of the
+# 132 SMs, at the 1.98 GHz the fp32 rate assumes
+H100_SFU_EXPS = 132 * 16 * 1.98e9
 HIDDEN = 64                  # the Q-net's hidden width (core/qnet.py)
 
 
@@ -315,6 +329,27 @@ def cuda_ms(torch, fn, reps=25, warmup=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_back_to_back(torch, fn, launches=20, reps=5, warmup=5):
+    """Milliseconds per call over ``launches`` calls enqueued back to back
+    between one pair of CUDA events (median of ``reps``): the device's time
+    once the host runs ahead, where ``cuda_ms`` times each call alone and so
+    also holds the wrapper's host time before the launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -1795,15 +1830,25 @@ def scan_inputs(torch, b, t, inner, state, seed, *, random_h0=True, model=False)
     return x, dt, bm, cm, a, h0
 
 
+def ssm_bound_ms(nbytes, ops, exps):
+    """The largest of the bytes over HBM bandwidth, the fp32 operations over
+    the fp32 rate and the exps over the special-function units' rate; the
+    last two are both "operations"."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = max(ops / H100_FP32_FLOPS, exps / H100_SFU_EXPS)
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def scan_bound_ms(b, t, inner, state):
     """Least time: x, dt, B, C, A, h0 read once, y and h_T written once,
     over HBM bandwidth; or 7 fp32 operations per (b, t, c, s) (the exp
-    counted as one) plus one per (b, t, c) over the fp32 rate."""
+    counted as one) plus one per (b, t, c) over the fp32 rate; or one exp
+    per (b, t, c, s) over the special-function units' 16 a clock and SM
+    (H100_SFU_EXPS), the larger at Hymba's shapes."""
     nbytes = 4.0 * (3 * b * t * inner + 2 * b * t * state + inner * state
                     + 2 * b * inner * state)
     ops = float(b) * t * inner * (7 * state + 1)
-    t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return ssm_bound_ms(nbytes, ops, float(b) * t * inner * state)
 
 
 # Path 7's shape: Hymba's prefill, batch 4 x 2048 tokens, inner 1600, state 16
@@ -1812,8 +1857,9 @@ SCAN_MAIN = dict(b=4, t=2048, inner=1600, state=16, random_h0=False, model=True)
 
 def phase_scan_vs_plain(torch):
     """The mamba kernel against its plain version over T, inner, state,
-    batch and h0, every lane split of the state, path 7's own shape (B and C
-    strided views) and a split-T composition."""
+    batch and h0, every lane split of the state, path 7's own shapes (B and C
+    strided views: Hymba's prefill, a decode step, B=1 at T=8192) and a
+    split-T composition."""
     from repro_torch.kernels.mamba.kernel import selective_scan_cuda
     from repro_torch.kernels.mamba.ref import selective_scan_ref
 
@@ -1822,7 +1868,9 @@ def phase_scan_vs_plain(torch):
              for state in (8, 16) for b in (1, 4) for h0 in (False, True)]
     cases += [dict(b=2, t=129, inner=96, state=st, random_h0=True)
               for st in (1, 4, 20, 32, 64)]
-    cases += [dict(SCAN_MAIN, label="hymba_prefill")]
+    cases += [dict(SCAN_MAIN, label="hymba_prefill"),
+              dict(SCAN_MAIN, t=1, random_h0=True, label="hymba_decode"),
+              dict(SCAN_MAIN, b=1, t=8192, label="hymba_t8192")]
     err_y = err_h = 0.0
     for i, c in enumerate(cases):
         args = scan_inputs(torch, c["b"], c["t"], c["inner"], c["state"], seed=i,
@@ -1873,11 +1921,12 @@ def wkv_inputs(torch, b, t, h, n, seed, *, decay="mild", random_s0=True, u_per_b
 def wkv_bound_ms(b, t, h, n):
     """Least time: r, k, v, logw read once, y written once, u, s0 and s_T,
     over HBM bandwidth; or 5 n^2 + 4 n fp32 operations per token and head
-    (r.S; w S + k v; the bonus term; the exp) over the fp32 rate."""
+    (r.S; w S + k v; the bonus term; the exp) over the fp32 rate; or one exp
+    per (token, head, row) over the special-function units' rate
+    (H100_SFU_EXPS)."""
     nbytes = 4.0 * (5 * b * t * h * n + h * n + 2 * b * h * n * n)
     ops = float(b) * t * h * (5 * n * n + 4 * n)
-    t_ops, t_bytes = ops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return ssm_bound_ms(nbytes, ops, float(b) * t * h * n)
 
 
 # Path 7's shape: RWKV6-3B's prefill, batch 4 x 1024 tokens, 40 heads of 64
@@ -1887,8 +1936,9 @@ WKV_MAIN = dict(b=4, t=1024, h=40, n=64)
 def phase_wkv_vs_plain(torch):
     """The rwkv6 kernel against its plain version over T, n and B * H in the
     reference's (BH, T, n) layout (through ``ops.wkv6``), mild and strong
-    decay, odd widths, path 7's own shape in the model's layout (views) and a
-    split-T composition."""
+    decay, odd widths, rows that are not contiguous (4-byte copies), path
+    7's own shapes in the model's layout (views: RWKV6-3B's prefill, a decode
+    step, B=1 at T=8192) and a split-T composition."""
     from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
     from repro_torch.kernels.rwkv6.ops import wkv6
     from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref, wkv6_ref
@@ -1897,10 +1947,15 @@ def phase_wkv_vs_plain(torch):
              for t in (1, 7, 64, 65, 1000) for n in (16, 32, 64)
              for bh in (1, 3, 160) for dec in ("mild", "strong")]
     cases += [dict(bh=3, t=65, n=n, decay="mild") for n in (5, 48)]
+    cases += [dict(bh=bh, t=65, n=64, decay=dec, strided=True)
+              for bh in (3, 160) for dec in ("mild", "strong")]
     err_y = err_s = 0.0
     for i, c in enumerate(cases):
         r, k, v, logw, u, s0 = wkv_inputs(torch, c["bh"], c["t"], 1, c["n"], seed=i,
                                           decay=c["decay"], u_per_batch=True)
+        if c.get("strided"):          # entry stride T: the kernel's 4-byte copies
+            r, k, v, logw = (a.transpose(1, 3).contiguous().transpose(1, 3)
+                             for a in (r, k, v, logw))
         args = (r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0], u[:, 0], s0[:, 0])
         y, s = wkv6(*args)
         torch.cuda.synchronize()
@@ -1908,14 +1963,18 @@ def phase_wkv_vs_plain(torch):
         err_y = max(err_y, check_rows(torch, y, ry, (1, 2), f"rwkv6 y {c}"))
         err_s = max(err_s, check_rows(torch, s, rs, (1, 2), f"rwkv6 s_T {c}"))
     main = []
-    for dec in ("model", "strong"):
-        args = wkv_inputs(torch, **WKV_MAIN, seed=500, decay=dec, random_s0=False)
+    for label, shape, dec, random_s0 in (
+            ("prefill", WKV_MAIN, "model", False), ("prefill", WKV_MAIN, "strong", False),
+            ("decode", dict(WKV_MAIN, t=1), "model", True),
+            ("t8192", dict(WKV_MAIN, b=1, t=8192), "model", False),
+            ("t8192", dict(WKV_MAIN, b=1, t=8192), "strong", False)):
+        args = wkv_inputs(torch, **shape, seed=500, decay=dec, random_s0=random_s0)
         y, s = wkv6_cuda(*args)
         torch.cuda.synchronize()
         ry, rs = wkv6_heads_ref(*args)
-        main.append([dec, check_rows(torch, y, ry, (1, 3), f"rwkv6 main y {dec}"),
-                     check_rows(torch, s, rs, (2, 3), f"rwkv6 main s_T {dec}")])
-        err_y, err_s = max(err_y, main[-1][1]), max(err_s, main[-1][2])
+        main.append([label, dec, check_rows(torch, y, ry, (1, 3), f"rwkv6 {label} y {dec}"),
+                     check_rows(torch, s, rs, (2, 3), f"rwkv6 {label} s_T {dec}")])
+        err_y, err_s = max(err_y, main[-1][2]), max(err_s, main[-1][3])
     # split-T composition at path 7's shape
     r, k, v, logw, u, s0 = wkv_inputs(torch, **WKV_MAIN, seed=501, decay="mild")
     y, s = wkv6_cuda(r, k, v, logw, u, s0)
@@ -1929,17 +1988,20 @@ def phase_wkv_vs_plain(torch):
          tolerance=f"{SSM_TOL}*max(1,|ref|) of the (batch, head) row",
          max_abs_err_y=err_y, max_abs_err_s=err_s, max_abs_err_split_t=err_split,
          main_shape=WKV_MAIN, main_layout="(B, T, H, n) views of (B, T, H*n) tensors",
-         main_results=[["decay", "y_err", "s_err"]] + main)
+         main_results=[["shape", "decay", "y_err", "s_err"]] + main)
     torch.cuda.empty_cache()
     return max(err_y, err_s, err_split)
 
 
 def phase_ssm_timings(torch, card):
-    """Kernel, plain version and bound at path 7's shapes and at T=8192.
-    No one PyTorch call computes either function, so there is no library
-    yardstick."""
+    """Kernel, plain version and bound at path 7's shapes and at T=8192,
+    the kernel timed call by call (``ms``, as every kernel here) and back to
+    back (``ms_back_to_back``).  No one PyTorch call computes either
+    function, so there is no library yardstick."""
+    from repro_torch.kernels.mamba.kernel import launch_config as scan_config
     from repro_torch.kernels.mamba.kernel import selective_scan_cuda
     from repro_torch.kernels.mamba.ref import selective_scan_ref
+    from repro_torch.kernels.rwkv6.kernel import launch_config as wkv_config
     from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
     from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref
 
@@ -1947,28 +2009,48 @@ def phase_ssm_timings(torch, card):
     for label, b, t in (("hymba_prefill", 4, 2048), ("hymba_t8192", 1, 8192)):
         args = scan_inputs(torch, b, t, 1600, 16, seed=t, random_h0=False, model=True)
         ms = cuda_ms(torch, lambda: selective_scan_cuda(*args))
+        back_to_back = cuda_ms_back_to_back(torch, lambda: selective_scan_cuda(*args))
         plain_ms = cuda_ms(torch, lambda: selective_scan_ref(*args), reps=3, warmup=1)
         bound, bound_by = scan_bound_ms(b, t, 1600, 16)
-        rows[label] = dict(b=b, t=t, inner=1600, state=16, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound, bound_by=bound_by, library_ms=None)
+        rows[label] = dict(b=b, t=t, inner=1600, state=16, ms=ms,
+                           ms_back_to_back=back_to_back, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by, library_ms=None,
+                           launch=scan_config(16, b, 1600))
         emit(phase="timing", kernel="mamba", shape=label, card=card, **rows[label],
              library_note=SSM_NO_LIBRARY)
     for label, b, t in (("rwkv6_prefill", 4, 1024), ("rwkv6_t8192", 1, 8192)):
         args = wkv_inputs(torch, b, t, 40, 64, seed=t, decay="model", random_s0=False)
         ms = cuda_ms(torch, lambda: wkv6_cuda(*args))
+        back_to_back = cuda_ms_back_to_back(torch, lambda: wkv6_cuda(*args))
         plain_ms = cuda_ms(torch, lambda: wkv6_heads_ref(*args), reps=3, warmup=1)
         bound, bound_by = wkv_bound_ms(b, t, 40, 64)
-        rows[label] = dict(b=b, t=t, h=40, n=64, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound, bound_by=bound_by, library_ms=None)
+        rows[label] = dict(b=b, t=t, h=40, n=64, ms=ms, ms_back_to_back=back_to_back,
+                           plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by, library_ms=None,
+                           launch=wkv_config(64, b * 40))
         emit(phase="timing", kernel="rwkv6", shape=label, card=card, **rows[label],
              library_note=SSM_NO_LIBRARY)
+    # a decode step's call (B=4, T=1): the wrapper's host time, launch and
+    # synchronise included, beside the kernel's time alone
+    scan_args = scan_inputs(torch, 4, 1, 1600, 16, seed=1, model=True)
+    wkv_args = wkv_inputs(torch, 4, 1, 40, 64, seed=1, decay="model")
+    for kernel, fn, args in (("mamba", selective_scan_cuda, scan_args),
+                             ("rwkv6", wkv6_cuda, wkv_args)):
+        rows[f"{kernel}_decode"] = dict(
+            b=4, t=1, ms=cuda_ms(torch, lambda: fn(*args)),
+            ms_back_to_back=cuda_ms_back_to_back(torch, lambda: fn(*args)),
+            host_us_per_call=host_us(torch, lambda: fn(*args)))
+        emit(phase="timing", kernel=kernel, shape="decode_step", card=card,
+             **rows[f"{kernel}_decode"])
     torch.cuda.empty_cache()
     return rows
 
 
 def phase_ssm_serving_path(torch):
     """Path 7, SSM serving at full published width and depth (bf16): Hymba
-    past its 1024 window, RWKV6-3B, and continuous batching on RWKV6-3B."""
+    past its 1024 window, RWKV6-3B, and continuous batching on RWKV6-3B.
+    Prefill launches each SSM kernel once per layer, and so does every
+    decode step."""
     import numpy as np
 
     from repro_torch.configs import get_model_config
@@ -1978,14 +2060,15 @@ def phase_ssm_serving_path(torch):
 
     reset_counts()                                # every count to 0
     runs = {}
-    for arch, prompt, want in (
-            ("hymba-1.5b", 2048, {"mamba": 32, "flash_attention": 32,
-                                  "flash_attention_mma": 32}),
-            ("rwkv6-3b", 1024, {"rwkv6": 32})):
+    gen = 32
+    for arch, prompt, ssm in (("hymba-1.5b", 2048, "mamba"), ("rwkv6-3b", 1024, "rwkv6")):
         cfg = get_model_config(arch)
+        want = {ssm: cfg.n_layers * (1 + gen)}       # the prefill and every decode step
+        if cfg.attention == "hybrid":
+            want.update(flash_attention=cfg.n_layers, flash_attention_mma=cfg.n_layers)
         before = read_counts()
         torch.cuda.reset_peak_memory_stats()
-        stats = serve(arch, smoke=False, batch=4, prompt_len=prompt, gen=32,
+        stats = serve(arch, smoke=False, batch=4, prompt_len=prompt, gen=gen,
                       verbose=False, device="cuda")
         launched = {k: n - before[k] for k, n in read_counts().items()}
         require(all(math.isfinite(v) and v > 0 for v in stats.values()), stats)
@@ -1993,7 +2076,7 @@ def phase_ssm_serving_path(torch):
                 f"{arch}: launches {launched}, expected {want}")
         runs[arch] = launched
         emit(phase="serve", path="ssm_serving", model=arch, layers=cfg.n_layers,
-             params=cfg.param_count(), batch=4, prompt=prompt, gen=32, **stats,
+             params=cfg.param_count(), batch=4, prompt=prompt, gen=gen, **stats,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launched,
              ring_wraps=bool(cfg.window and prompt > cfg.window))
         torch.cuda.empty_cache()
@@ -2012,7 +2095,9 @@ def phase_ssm_serving_path(torch):
     require(st.completed == 8 and st.tokens_out == 8 * 16, st)
     require(all(len(r.out) == 16 and all(0 <= t < cfg.vocab_size for t in r.out)
                 for r in batcher.completed))
-    require(not any(launched.values()), f"continuous batching launched {launched}")
+    want = {"rwkv6": cfg.n_layers * st.decode_steps}
+    require(launched == {k: want.get(k, 0) for k in launched},
+            f"continuous batching: launches {launched}, expected {want}")
     runs["continuous_batching"] = launched
     counts = read_counts()                        # read just after
     emit(phase="serve", path="ssm_serving", model="rwkv6-3b", mode="continuous_batching",
@@ -2020,8 +2105,8 @@ def phase_ssm_serving_path(torch):
          completed=st.completed, decode_steps=st.decode_steps, tokens_out=st.tokens_out,
          elapsed_s=st.elapsed_s, tok_per_s=st.tok_per_s, mean_ttft_s=st.mean_ttft_s,
          mean_latency_s=st.mean_latency_s, launches=launched,
-         note="prompts are fed token by token through decode_step, as in the "
-              "reference: no kernel is expected on this path")
+         note="prompts are fed token by token through decode, as in the "
+              "reference: one rwkv6 launch per layer and decode step")
     emit(phase="main_launches", path="ssm_serving", launches=counts, per_run=runs)
     del params, batcher
     torch.cuda.empty_cache()
@@ -2047,6 +2132,76 @@ def phase_ssm_serve_profile(torch):
                            for k, v in kernel_times(rows, dev_us, n).items()},
              top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
         torch.cuda.empty_cache()
+
+
+def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, timed=32):
+    """Decode alone, Hymba-1.5B and RWKV6-3B at full width and depth (bf16,
+    batch 4, after a 128-token prefill): the serving loops' in-place step by
+    the kernels (this tree's route), and the same step with the mixers'
+    ops swapped for their plain versions (the route decode took before
+    SSM decode went through the kernels), in turns.  Each window: 8 steps
+    under torch.profiler (device kernels, SSM-kernel launches and device
+    busy ms per step) and 32 unprofiled steps (wall ms per step, host clock
+    around a final synchronise)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.mamba.ref import selective_scan_ref
+    from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as T
+
+    kernels = {"wkv6_heads": ssm_lib.wkv6_heads, "selective_scan": ssm_lib.selective_scan}
+    plain = {"wkv6_heads": wkv6_heads_ref, "selective_scan": selective_scan_ref}
+    out = {}
+    for arch in ("hymba-1.5b", "rwkv6-3b"):
+        cfg = get_model_config(arch)
+        params = T.init_params(0, cfg, "cuda")
+        rng = np.random.default_rng(0)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)), device="cuda")
+        max_len = prompt + 4 * (warm + profiled + timed)
+        logits, state = T.prefill(params, cfg, tok, impl="flash", last_only=True,
+                                  max_len=max_len)
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        for route in ("kernels", "plain", "plain", "kernels"):
+            for name, fn in (kernels if route == "kernels" else plain).items():
+                setattr(ssm_lib, name, fn)
+            try:
+                for _ in range(warm):
+                    logits, state = T._decode_step_into(params, cfg, state, nxt)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(profiled):
+                        logits, state = T._decode_step_into(params, cfg, state, nxt)
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(timed):
+                    logits, state = T._decode_step_into(params, cfg, state, nxt)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0) / timed
+            finally:
+                for name, fn in kernels.items():
+                    setattr(ssm_lib, name, fn)
+            rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+            ssm_rows = [e for e in rows if "wkv6" in e.key or "selective_scan" in e.key]
+            ssm = sum(e.count for e in ssm_rows)
+            require(bool(torch.isfinite(logits).all()), f"{arch} decode ({route}) not finite")
+            out.setdefault(arch, {}).setdefault(route, []).append(dict(
+                kernels_per_step=sum(e.count for e in rows) / profiled,
+                ssm_kernel_launches_per_step=ssm / profiled,
+                ssm_kernel_device_ms_per_step=sum(
+                    getattr(e, "self_device_time_total", 0.0) for e in ssm_rows) / 1e3 / profiled,
+                device_busy_ms_per_step=busy_us / 1e3 / profiled, wall_ms_per_step=wall_ms))
+        require(all(r["ssm_kernel_launches_per_step"] == cfg.n_layers
+                    for r in out[arch]["kernels"]), f"{arch}: {out[arch]['kernels']}")
+        emit(phase="decode_profile", path="ssm_serving", model=arch, batch=batch,
+             prompt=prompt, order="kernels, plain, plain, kernels", **out[arch])
+        del params, state, logits
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, max_err, row, shape):
@@ -2097,6 +2252,12 @@ def ptxas_lines(log):
     return out
 
 
+def spill_bytes(log):
+    """Every spill-store and spill-load byte count ``ptxas -v`` printed."""
+    return [int(v) for pair in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                          log) for v in pair]
+
+
 STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attention",
          "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
          "path3_baselines", "path4_trace", "path5_async", "path6_lm", "path7_ssm")
@@ -2132,6 +2293,18 @@ def run_phases(torch, card, only=()):
         for lib, path in zip(libraries, built):
             emit(phase="build", kernel=lib.name, seconds=seconds,
                  library=str(path.relative_to(ROOT)), ptxas=ptxas_lines(lib.build_log))
+        for lib in (mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY):
+            spills = spill_bytes(lib.build_log)
+            require(lib.build_log == "" or not any(spills),
+                    f"{lib.name}: ptxas reports spills {spills}")
+        # every instantiation: rwkv6's (n, B * H) routes, mamba's lane splits
+        emit(phase="launch_config", kernel="rwkv6",
+             configs=[dict(n=n, heads=bh, **rwkv6_kernel.launch_config(n, bh))
+                      for n, bh in ((16, 160), (32, 160), (64, 40), (64, 160))])
+        emit(phase="launch_config", kernel="mamba",
+             configs=[dict(state=st, batch=b, inner=1600,
+                           **mamba_kernel.launch_config(st, b, 1600))
+                      for st, b in ((4, 4), (8, 4), (16, 1), (16, 4), (32, 4), (64, 4))])
 
     # ---- 2-3: kernels against their plain versions, timings -----------
     if want("select_topk"):
@@ -2206,6 +2379,7 @@ def run_phases(torch, card, only=()):
         with step("path7_ssm"):
             ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
             phase_ssm_serve_profile(torch)
+            phase_ssm_decode_profile(torch)
     if only:
         return None
 
@@ -2254,12 +2428,16 @@ def run_phases(torch, card, only=()):
                           ssm_counts["mamba"], scan_err, ssm_timings["hymba_prefill"],
                           {k: ssm_timings["hymba_prefill"][k]
                            for k in ("b", "t", "inner", "state")}),
-             library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs),
+             library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs,
+             ms_back_to_back=ssm_timings["hymba_prefill"]["ms_back_to_back"],
+             launch_config=ssm_timings["hymba_prefill"]["launch"]),
         dict(kernel_entry("rwkv6", "src/repro_torch/csrc/rwkv6.cu",
                           "src/repro/kernels/rwkv6/kernel.py:74",
                           ssm_counts["rwkv6"], wkv_err, ssm_timings["rwkv6_prefill"],
                           {k: ssm_timings["rwkv6_prefill"][k] for k in ("b", "t", "h", "n")}),
-             library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs),
+             library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs,
+             ms_back_to_back=ssm_timings["rwkv6_prefill"]["ms_back_to_back"],
+             launch_config=ssm_timings["rwkv6_prefill"]["launch"]),
     ]
 
 

@@ -4,12 +4,15 @@ Replaces the TPU kernel ``src/repro/kernels/mamba/kernel.py:68``
 (``selective_scan_pallas``), which keeps an (inner block, state) slice of
 the state in VMEM and walks T chunks on a sequential grid axis.  The source
 is ``src/repro_torch/csrc/mamba.cu``: the loop over T runs inside the CTA,
-with the state in registers.  A CTA takes 32 channels of one sequence;
-each channel's ``state`` entries are split over a few lanes (4 entries a
-lane, so 4 lanes at Hymba's state of 16) and ``y_t`` is their shuffle sum.
-Each 32-token chunk of x, dt, B and C is staged in shared memory (B and C
-rows are shared by every channel of the CTA) and each chunk of y leaves
-from it.  Its header gives the bound on the card.
+with the state in registers, one (b, c, s) chain a lane (at Hymba's state
+of 16: four chains a lane on 4 lanes where the grid has a CTA for every SM,
+else two on 8 lanes).  For each 16-token chunk the decays and inputs of all its tokens
+come first, off the serial chain, then the one-FMA-a-token recurrence, then
+``y_t``'s sum over the entries as a reduce-scatter over the channel's
+lanes.  The chunks of x, dt, B and C are staged with ``cp.async`` (4-byte
+copies that transpose them entry-major, through their strides), the next
+two in flight while one is worked.  Its header gives the bound on the
+card.
 
 ``LIBRARY`` builds the source with ``nvcc`` at first use into
 ``build/kernels/`` (:mod:`repro_torch.kernels._build`).  Nothing is built
@@ -27,10 +30,10 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._build import CudaLibrary, call_on_device, stream_handle
 from repro_torch.kernels.mamba.ref import selective_scan_ref
 
-MAX_STATE = 64            # mamba.cu: 16 lanes x 4 entries
+MAX_STATE = 64            # mamba.cu: 32 lanes x 2 entries
 MAX_GRID_Y = 65535
 
 
@@ -39,18 +42,39 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.selective_scan_occupancy
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
+
+
+def launch_config(state: int, batch: int, inner: int) -> dict:
+    """The kernel's launch configuration for ``state`` entries, ``batch``
+    sequences and ``inner`` channels, from the built library (card only):
+    lanes per channel, entries per lane, threads per CTA, the resident CTAs
+    per SM that ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports,
+    static shared memory per CTA and registers per thread."""
+    out = (ctypes.c_int * 6)()
+    err = LIBRARY.load().selective_scan_occupancy(state, batch, inner, out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_occupancy failed: CUDA error {err}")
+    keys = ("lanes", "entries_per_lane", "threads", "ctas_per_sm", "smem_bytes",
+            "registers")
+    return dict(zip(keys, out))
 
 
 LIBRARY = CudaLibrary("mamba", _bind)
 
 
+_NAMES = ("x", "dt", "Bm", "Cm", "A", "h0")
+
+
 def _check(x, dt, Bm, Cm, A, h0) -> None:
-    named = (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm), ("A", A), ("h0", h0))
-    for name, t in named:
-        if t.dtype != torch.float32:
+    dev = x.device
+    for name, t in zip(_NAMES, (x, dt, Bm, Cm, A, h0)):
+        if t.dtype is not torch.float32:
             raise ValueError(f"selective_scan takes float32 tensors; {name} is {t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, inner), got {tuple(x.shape)}")
     b, t, inner = x.shape
@@ -70,9 +94,10 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
 
     CUDA tensors launch the kernel (and count the launch); CPU tensors take
     the plain version; anything else raises.  x, dt, Bm and Cm are read
-    through their strides (any layout; the last dimension contiguous is the
-    fast case); A and h0 must be contiguous.  The kernel takes state <= 64
-    and B <= 65535 and raises on anything else rather than copy.
+    through their strides (any layout, no alignment needed; the last
+    dimension contiguous is the fast case); A and h0 must be contiguous.
+    The kernel takes state <= 64 and B <= 65535 and raises on anything else
+    rather than copy.
     """
     _check(x, dt, Bm, Cm, A, h0)
     dev = x.device
@@ -95,12 +120,11 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         h_fin.copy_(h0)
         return y, h_fin
     lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        err = lib.selective_scan_launch(
-            x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
-            h0.data_ptr(), y.data_ptr(), h_fin.data_ptr(), b, t, inner, state,
-            *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    err = call_on_device(
+        dev.index, lib.selective_scan_launch,
+        x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), h_fin.data_ptr(), b, t, inner, state,
+        *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(), stream_handle(dev.index))
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: CUDA error {err}")
     selective_scan_cuda.launches += 1

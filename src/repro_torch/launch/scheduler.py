@@ -1,13 +1,15 @@
 """Continuous-batching serving scheduler.
 
-A fixed pool of B decode slots over ``decode_step``; requests queue up, join
+A fixed pool of B decode slots over ``decode_step`` (``_decode_step_into``:
+the batcher owns its state and updates it in place); requests queue up, join
 a slot as soon as one frees (their prompt is fed into that slot's cache
 region), and leave when they emit ``max_new`` tokens.
 
 Slot-wise prefill uses the token-by-token decode path, as in the reference
 (single-sequence prefill into the batched cache would need per-slot cache
 scatter; throughput-optimal systems chunk prefill separately).  So this
-path launches no attention kernel: decode attention is plain tensor code.
+path launches no attention kernel (decode attention is plain tensor code);
+an SSM model's mixers launch their kernel once per layer and step.
 """
 from __future__ import annotations
 
@@ -105,7 +107,7 @@ class ContinuousBatcher:
     def step(self) -> None:
         """One batched decode step across all slots."""
         self._admit()
-        logits, self.state = T.decode_step(
+        logits, self.state = T._decode_step_into(
             self.params, self.cfg, self.state,
             torch.as_tensor(self.cur_token, device=self.device))
         self._decode_steps += 1

@@ -59,8 +59,10 @@ def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
     prefill builds the (S, S) score matrix of every head that the attention
     kernel exists to avoid; ``impl`` is an existing argument of
     ``T.prefill``.
-    Decode goes through ``T.decode_step``.  Sampling draws from a
-    ``torch.Generator`` on the device, another stream than
+    Decode goes through ``T._decode_step_into`` (``T.decode_step`` writing
+    the caches in place: the old state is never reused); Hymba's and RWKV6's
+    mixers launch their kernel once per layer and token.  Sampling draws
+    from a ``torch.Generator`` on the device, another stream than
     ``jax.random.categorical``'s; ``temperature=0`` is greedy.
     """
     dev = resolve_device(device)
@@ -86,7 +88,7 @@ def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     for _ in range(gen):
         toks.append(tok)
-        logits, state = T.decode_step(params, cfg, state, tok)
+        logits, state = T._decode_step_into(params, cfg, state, tok)
         tok = sample(logits, temperature, sampler)
     _sync(dev)
     decode_s = time.perf_counter() - t1

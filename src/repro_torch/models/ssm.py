@@ -17,13 +17,16 @@ Routes of the prompt-length mixers (``impl``):
   recurrence when ``t % chunk``.
 * ``"cuda"`` — the kernels: :func:`mamba_scan` sends the scan through
   ``repro_torch.kernels.mamba.ops.selective_scan`` (the reference's
-  ``"pallas"`` route, and like it only when T > 1);
+  ``"pallas"`` route, here at any T);
   :func:`rwkv_time_mix_chunked` sends the WKV core through
   ``repro_torch.kernels.rwkv6.ops.wkv6_heads``, any T.  On CPU tensors the
   ops take their plain versions.
 
-Decode stays plain tensor code, as in the reference:
-:func:`rwkv_time_mix_recurrent`, and :func:`mamba_scan` at T = 1.
+Decode goes through the ops as well: :func:`rwkv_time_mix_recurrent` calls
+``wkv6_heads``, and ``models/transformer.py``'s decode step calls
+:func:`mamba_scan` with ``impl="cuda"`` at T = 1, so on the card every
+decode step launches the kernels and on the CPU it runs the reference's
+per-token math.  The ``"xla"`` routes stay plain tensor code on any device.
 Initializers draw from a ``torch.Generator`` on its device with the
 reference's distributions; ``lead`` stacks layers.
 """
@@ -147,8 +150,9 @@ def _rwkv_time_mix_heads(p: Dict, x: torch.Tensor, state: RWKVState,
 
 def rwkv_time_mix_recurrent(p: Dict, x: torch.Tensor, state: RWKVState,
                             cfg: ModelConfig) -> Tuple[torch.Tensor, RWKVState]:
-    """Oracle/decode path: per-token recurrence. x: (B,T,d)."""
-    return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads_ref)
+    """Decode path: the per-token recurrence through the rwkv6 op (the
+    kernel on the card, its plain version on the CPU). x: (B,T,d)."""
+    return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads)
 
 
 def rwkv_time_mix_chunked(p: Dict, x: torch.Tensor, state: RWKVState,
@@ -156,15 +160,16 @@ def rwkv_time_mix_chunked(p: Dict, x: torch.Tensor, state: RWKVState,
                           ) -> Tuple[torch.Tensor, RWKVState]:
     """Prefill.  ``impl="xla"``: the reference's chunkwise-parallel form
     (intra-chunk via masked products, inter-chunk via a loop carrying the
-    (B,H,n,n) state), or the recurrence when ``t % chunk``.  ``impl="cuda"``:
-    the WKV core through the rwkv6 op, on the projections in place."""
+    (B,H,n,n) state), or the plain recurrence when ``t % chunk``.
+    ``impl="cuda"``: the WKV core through the rwkv6 op, on the projections
+    in place."""
     _check_impl(impl)
     b, t, d = x.shape
     h, n = rwkv_dims(cfg)
     if impl == "cuda":
         return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads)
     if t % chunk:
-        return rwkv_time_mix_recurrent(p, x, state, cfg)
+        return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads_ref)
     r, k, v, g, logw = _rwkv_projections(p, x, _shifted(x, state.shift_tm))
     nc = t // chunk
     # (B, nc, L, H, n)
@@ -302,14 +307,14 @@ def mamba_scan(p: Dict, x: torch.Tensor, st: MambaState, cfg: ModelConfig,
 
     ``impl="cuda"`` sends the scan through the mamba op, the hand-written
     CUDA kernel with the state in registers: the counterpart of the
-    reference's ``impl="pallas"`` (its VMEM-resident TPU kernel), and like
-    it only when T > 1.  ``"xla"`` (the default) is the per-token loop.
+    reference's ``impl="pallas"`` (its VMEM-resident TPU kernel, which the
+    reference takes only when T > 1), at any T, decode included.
+    ``"xla"`` (the default) is the per-token loop.
     """
     _check_impl(impl)
-    t = x.shape[1]
     xi, z, dt, B, C, new_buf = _mamba_preproc(p, x, st.conv, cfg)
     A = -torch.exp(p["log_a"])                           # (inner, state)
-    scan = selective_scan if impl == "cuda" and t > 1 else selective_scan_ref
+    scan = selective_scan if impl == "cuda" else selective_scan_ref
     y, h_fin = scan(xi.float(), dt, B, C, A, st.h)
     y = y + p["d_skip"] * xi.float()
     out = (y.to(x.dtype) * z) @ p["out"]

@@ -21,8 +21,11 @@ Parameters are the reference's pytree as nested dicts of tensors:
 leaf stacked over a leading ``L`` axis.  The layer loop is a Python loop
 over ``L`` that indexes those leaves (views, no copies) in place of
 ``lax.scan``; ``cfg.remat`` (a training option) has no effect on these
-inference paths.  The decode state's caches are stacked the same way and
-updated in place by :func:`decode_step` (the reference returns new arrays).
+inference paths.  The decode state's caches are stacked the same way.
+:func:`decode_step` leaves its input state as it was and returns a new one,
+as the reference does; the serving loops, which own their state and never
+reuse the old one, call :func:`_decode_step_into`, which writes the caches
+in place.
 """
 from __future__ import annotations
 
@@ -262,7 +265,9 @@ def init_decode_state(params: Params, cfg: ModelConfig, batch: int,
 def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
                   cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
     """One-token layer step. x: (B,1,d).  Writes the K/V ring in place and
-    returns the layer's new caches."""
+    returns the layer's new caches.  The SSM mixers go through the kernels'
+    ops (the reference's decode has no ``impl``: on the card the ops launch
+    the kernels, on the CPU they take the plain versions)."""
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if cfg.attention == "none":
         st = cache["rwkv"]
@@ -274,7 +279,8 @@ def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     a_out, kv2 = attn.attention_decode(lp["attn"], h, cache["kv"], cfg, window=_window(cfg))
     new = {"kv": kv2}
     if cfg.attention == "hybrid":
-        m_out, new["mamba"] = ssm_lib.mamba_scan(lp["mamba"], h, cache["mamba"], cfg)
+        m_out, new["mamba"] = ssm_lib.mamba_scan(lp["mamba"], h, cache["mamba"], cfg,
+                                                 impl="cuda")
         a_out = 0.5 * (a_out + m_out)
     x = x + a_out
     h = apply_norm(cfg.norm, lp["norm2"], x)
@@ -336,11 +342,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x), state
 
 
-def decode_step(params: Params, cfg: ModelConfig, state: DecodeState,
-                token: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
-    """token: (B,) int -> (logits (B, V), new state).  The caches of
-    ``state`` are written in place (the new state shares them), so ``state``
-    is not reusable as the old state."""
+def _decode_step_into(params: Params, cfg: ModelConfig, state: DecodeState,
+                      token: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
+    """:func:`decode_step` writing into ``state``'s caches in place: the new
+    state shares them, so ``state`` is not reusable as the old state.  For
+    callers that own their state (``launch/serve.py``,
+    ``launch/scheduler.py``)."""
     x = params["embed"][token.long()][:, None, :]                    # (B,1,d)
     for i in range(cfg.n_layers):
         cache = _layer_caches(state.layers, i)
@@ -352,3 +359,13 @@ def decode_step(params: Params, cfg: ModelConfig, state: DecodeState,
                 _store(cache[name], c)
     logits = _logits(params, cfg, x)[:, 0]
     return logits, DecodeState(state.layers, state.step + 1, state.cross_kv)
+
+
+def decode_step(params: Params, cfg: ModelConfig, state: DecodeState,
+                token: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
+    """token: (B,) int -> (logits (B, V), new state).  ``state`` is left as
+    it was, as in the reference: the caches are cloned once, then
+    :func:`_decode_step_into` writes the clones."""
+    layers = {name: type(c)(*(t.clone() for t in c)) for name, c in state.layers.items()}
+    return _decode_step_into(params, cfg, DecodeState(layers, state.step, state.cross_kv),
+                             token)

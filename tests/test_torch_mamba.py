@@ -198,3 +198,96 @@ def test_init_mamba_layout_and_distributions():
     jst = JS.init_mamba_state(cfg, 2)
     assert tuple(st.h.shape) == (3,) + jst.h.shape
     assert tuple(st.conv.shape) == (3,) + jst.conv.shape
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, emulated in numpy fp32 (csrc/mamba.cu)
+# ---------------------------------------------------------------------------
+
+KERNEL_TOL = 2e-5          # chip_smoke.py's SSM_TOL: x max(1, max |ref|) of the row
+
+
+def _fma32(a, b, c):
+    """fp32 fused multiply-add: the exact product and sum, rounded once (to
+    fp64, then fp32; the double rounding is far below the tolerance)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _scan_fp64(x, dt, bm, cm, a, h0):
+    """The plain version in fp64, on the same fp32 inputs."""
+    x, dt, bm, cm, a, h = (v.astype(np.float64) for v in (x, dt, bm, cm, a, h0))
+    ys = []
+    for t in range(x.shape[1]):
+        h = np.exp(dt[:, t, :, None] * a) * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None]
+        ys.append(np.einsum("bis,bs->bi", h, cm[:, t]))
+    return np.stack(ys, 1), h
+
+
+def _scan_kernel_emulation(x, dt, bm, cm, a, h0, lanes, npt):
+    """mamba.cu's order of fp32 operations with ``npt`` chains a lane on
+    ``lanes`` lanes (lane l holds entries l, l + lanes, ...): one chain per
+    (b, c, s), da = expf(dt A) and (dt x) B off the chain,
+    h = fma(da, h, (dt x) B), the lane's p = h C over its chains in order
+    (an FMA chain), and y's sum over the channel's lanes as the
+    reduce-scatter's tree: lanes l and l + lanes / 2 first, then
+    l + lanes / 4, ... (padded entries add 0)."""
+    b, t, inner = x.shape
+    state = a.shape[1]
+    pad = lanes * npt - state
+    bm, cm = (np.pad(m, [(0, 0), (0, 0), (0, pad)]) for m in (bm, cm))
+    a = np.pad(a, [(0, 0), (0, pad)])
+    h = np.pad(h0, [(0, 0), (0, 0), (0, pad)])
+    ys = np.empty((b, t, inner), np.float32)
+    for tt in range(t):
+        d = dt[:, tt, :, None]
+        da = np.exp(d * a)                                          # fp32 expf
+        u = (d * x[:, tt, :, None]) * bm[:, tt, None]
+        h = _fma32(da, h, u)
+        p = h[..., :lanes] * cm[:, tt, None, :lanes]
+        for e in range(1, npt):
+            s = slice(e * lanes, (e + 1) * lanes)
+            p = _fma32(h[..., s], cm[:, tt, None, s], p)
+        while p.shape[-1] > 1:
+            half = p.shape[-1] // 2
+            p = p[..., :half] + p[..., half:]
+        ys[:, tt] = p[..., 0]
+    return ys, h[..., :state]
+
+
+# (lanes, chains a lane) of each instantiation that takes a state width
+def _splits(state):
+    if state <= 4:
+        return [(4, 1)]
+    if state <= 8:
+        return [(8, 1)]
+    if state <= 16:
+        return [(4, 4), (8, 2)]
+    return [(32, 1)] if state <= 32 else [(32, 2)]
+
+
+def _rows_within(got, want, axes):
+    scale = np.maximum(1.0, np.abs(want).max(axis=axes, keepdims=True))
+    err = np.abs(got.astype(np.float64) - want)
+    assert np.isfinite(got).all() and (err <= KERNEL_TOL * scale).all(), float(err.max())
+
+
+@pytest.mark.parametrize("model", [True, False], ids=["hymba", "reference_test"])
+@pytest.mark.parametrize("state", [3, 12, 16, 20, 64])
+def test_kernel_order_of_operations_meets_the_card_tolerance(state, model):
+    """A numpy fp32 emulation of the kernel's order of operations (the
+    decays and inputs off the chain, the one-FMA recurrence, the lanes'
+    reduce-scatter tree) within the card's 2e-5 * max(1, |ref|) row
+    tolerance of an fp64 evaluation of the plain version, for every lane
+    split that takes the state width, on Hymba's dt and A (dt =
+    softplus(N(0, 1) - 4.6), A = -(1 .. state)) and the reference test's,
+    over 300 tokens."""
+    x, dt, bm, cm, a, h0 = _inputs(2, 300, 8, state, seed=state, h0_scale=1.0)
+    if model:
+        rng = np.random.default_rng(state + 1)
+        dt = np.log1p(np.exp(rng.normal(size=dt.shape) - 4.6)).astype(np.float32)
+        a = -np.broadcast_to(np.arange(1, state + 1, dtype=np.float32), a.shape).copy()
+    want_y, want_h = _scan_fp64(x, dt, bm, cm, a, h0)
+    for lanes, npt in _splits(state):
+        y, h = _scan_kernel_emulation(x, dt, bm, cm, a, h0, lanes, npt)
+        _rows_within(y, want_y, (1,))
+        _rows_within(h, want_h, (2,))

@@ -243,3 +243,103 @@ def test_init_rwkv_layout_and_distributions():
     st = S.init_rwkv_state(tcfg, 3, torch.device("cpu"), lead=(2,))
     jst = JS.init_rwkv_state(cfg, 3)
     assert [tuple(a.shape) for a in st] == [(2,) + a.shape for a in jst]
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, emulated in numpy fp32 (csrc/rwkv6.cu)
+# ---------------------------------------------------------------------------
+
+KERNEL_TOL = 2e-5          # chip_smoke.py's SSM_TOL: x max(1, max |ref|) of the row
+
+
+def _fma32(a, b, c):
+    """fp32 fused multiply-add: the exact product and sum, rounded once (to
+    fp64, then fp32; the double rounding is far below the tolerance)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _wkv6_fp64(r, k, v, logw, u, s0):
+    """The plain version's recurrence in fp64, on the same fp32 inputs."""
+    r, k, v, logw, u, S = (a.astype(np.float64) for a in (r, k, v, logw, u, s0))
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        ys.append(np.einsum("bi,bij->bj", r[:, t], S + u[..., None] * kv))
+        S = np.exp(logw[:, t])[..., None] * S + kv
+    return np.stack(ys, 1), S
+
+
+def _wkv6_kernel_emulation(r, k, v, logw, u, s0, nmax, rgw, warps, pg):
+    """rwkv6.cu's order of fp32 operations for a head's rows padded to
+    ``nmax``, ``rgw`` row groups of 4 a warp, ``warps`` warps a CTA, ``pg``
+    threads a token in the pack: each thread's y partial over its 4 rows as
+    an FMA chain, the reduce-scatter adding row groups in pairs inside the
+    warp, warp 0 adding the bonus weight times v, the warps' partials added
+    in warp order; S = fma(w, S, k v) with w = expf(logw), computed once per
+    (token, row); the bonus weight sum_i r u k as each pack thread's FMA
+    chain over its float4s of rows (q = thread, thread + pg, ...), then a
+    butterfly over the pg threads."""
+    bh, t, n = r.shape
+    pad = [(0, 0), (0, 0), (0, nmax - n)]
+    r, k, v, logw = (np.pad(a, pad) for a in (r, k, v, logw))
+    u = np.pad(u, [(0, 0), (0, nmax - n)])
+    S = np.pad(s0, [(0, 0), (0, nmax - n), (0, nmax - n)])
+    ys = np.empty((bh, t, nmax), np.float32)
+    for tt in range(t):
+        w = np.exp(logw[:, tt])                                    # fp32 expf
+        ru = (r[:, tt] * u).reshape(bh, nmax // 4 // pg, pg, 4)    # [q // pg, gi, elem]
+        kq = k[:, tt].reshape(bh, nmax // 4 // pg, pg, 4)
+        acc = np.zeros((bh, pg), np.float32)
+        for q in range(ru.shape[1]):
+            for e in range(4):
+                acc = _fma32(ru[:, q, :, e], kq[:, q, :, e], acc)
+        for off in (16, 8, 4, 2, 1):
+            if off < pg:
+                acc = acc + acc[:, np.arange(pg) ^ off]
+        ruk = acc[:, 0]
+        rg = r[:, tt].reshape(bh, nmax // 4, 4)                    # (bh, groups, 4)
+        Sg = S.reshape(bh, nmax // 4, 4, nmax)
+        part = rg[:, :, 0, None] * Sg[:, :, 0]
+        for i in range(1, 4):
+            part = _fma32(rg[:, :, i, None], Sg[:, :, i], part)   # (bh, groups, nmax)
+        part = part.reshape(bh, warps, rgw, nmax)
+        while part.shape[2] > 1:                                   # pairs, then quads
+            part = part[:, :, 0::2] + part[:, :, 1::2]
+        red = part[:, :, 0]                                        # (bh, warps, nmax)
+        y = _fma32(ruk[:, None], v[:, tt], red[:, 0])
+        for q in range(1, warps):
+            y = y + red[:, q]
+        ys[:, tt] = y
+        kv = k[:, tt, :, None] * v[:, tt, None, :]
+        S = _fma32(w[..., None], S, kv)
+    return ys[..., :n], S[:, :n, :n]
+
+
+def _rows_within(got, want, axes):
+    scale = np.maximum(1.0, np.abs(want).max(axis=axes, keepdims=True))
+    err = np.abs(got.astype(np.float64) - want)
+    assert np.isfinite(got).all() and (err <= KERNEL_TOL * scale).all(), float(err.max())
+    return float((err / (KERNEL_TOL * scale)).max())
+
+
+# (row groups a warp, warps, pack threads a token) of each instantiation by
+# NMAX: <16,1,4>; <32,1,4>; <64,2,4> and <64,2,2> (4 x 2 tiles: 2 row groups
+# a warp)
+KERNEL_SHAPES = {16: [(4, 1, 1)], 32: [(4, 2, 4)], 64: [(4, 4, 8), (2, 8, 16)]}
+
+
+@pytest.mark.parametrize("decay_mean", [-6.0, -2.0, 1.0], ids=["model", "mild", "strong"])
+@pytest.mark.parametrize("n", [5, 16, 32, 48, 64])
+def test_kernel_order_of_operations_meets_the_card_tolerance(n, decay_mean):
+    """A numpy fp32 emulation of the kernel's summation order (row-group
+    partials, their reduce-scatter and warp-order tree, the bonus term, the
+    per-chunk decays) within the card's 2e-5 * max(1, |ref|) row tolerance
+    of an fp64 evaluation of the plain version, for every instantiation
+    that takes width n, under the model's, a mild and a strong decay."""
+    r, k, v, logw, u, s0 = _inputs(3, 48, n, seed=n, decay_mean=decay_mean, s0_scale=1.0)
+    want_y, want_s = _wkv6_fp64(r, k, v, logw, u, s0)
+    nmax = 16 if n <= 16 else 32 if n <= 32 else 64
+    for shape in KERNEL_SHAPES[nmax]:
+        y, s = _wkv6_kernel_emulation(r, k, v, logw, u, s0, nmax, *shape)
+        _rows_within(y, want_y, (1, 2))
+        _rows_within(s, want_s, (1, 2))
