@@ -16,14 +16,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
    (``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
    ``mamba`` and ``rwkv6``, one ``nvcc`` each, started together), prints
-   ``ptxas``'s registers and spills (and fails if ``mamba`` or ``rwkv6``
-   spills), and the launch configuration of every ``mamba`` and ``rwkv6``
-   instantiation with the resident CTAs per SM that
+   ``ptxas``'s registers and spills (and fails if ``mamba``, ``rwkv6`` or
+   ``select_topk`` spills), and the launch configuration of every
+   ``mamba`` and ``rwkv6`` instantiation and of ``select_topk`` at each
+   timed shape (route, rows a thread, grid, registers, local bytes) with
+   the resident CTAs per SM that
    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports;
 2. every kernel against its plain PyTorch version on the card, with the
    tolerances stated below: ``select_topk`` over sizes, masks, biases, tie
-   patterns, hidden widths, feature widths past shared memory (F=96,
-   H=256; F=600) and k past 1024 (k=2000 at N=1e5); ``pairwise_rank``
+   patterns, hidden widths, wide nets (F=96, H=256; F=1000) and k past
+   1024 (k=2000 at N=1e5), duplicate rows at N=1e6, k at each route's
+   K_pad boundary (256, the largest carried list; 257, the smallest merge
+   tree), each scoring path's widths (H=320, the widest with activations
+   in shared memory; H in {384, 515, 600, 1024} through the scratch), the
+   op the paths call (host arrays, one C call) at the main path's two
+   shapes, and the carried list's winners against the merge tree's (the
+   same bits, on each scoring path, up to 1e6 rows); ``pairwise_rank``
    by its two routes (the fused loss-and-gradient launch through the
    autograd Function, the loss-only launch under ``torch.no_grad``) over N
    in {1, 2, 7, 30, 31, 32, 33, 127, 128, 129, 1000, 8192}, B in {1, 16,
@@ -56,9 +64,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    model's layout, views (RWKV6-3B's prefill: B=4, T=1024, 40 heads of 64,
    model and strong decay; a decode step; B=1 at T=8192, model and strong
    decay) and a split-T composition;
-3. kernel timings (CUDA events, warm-up, median of 25) beside the plain
-   version's, the least time the card could take (the bound) and a one-call
-   PyTorch yardstick: for ``fleet_state`` ``torch.searchsorted`` over the f64
+3. kernel timings (CUDA events, warm-up, median of 25; ``select_topk``
+   the median of 50 over two turns) beside the plain version's (in turns), the least time the card could take (the bound) and a one-call
+   PyTorch yardstick: for ``select_topk`` none (and the op at the main
+   path's two shapes, host included, beside the sequence it replaced, and
+   the device kernels per op call from ``torch.profiler``, which must be
+   one), for ``fleet_state`` ``torch.searchsorted`` over the f64
    key (and the op-level lookup at N=1000, host included, beside numpy's
    ``searchsorted``: the reference's host path), for ``pairwise_rank`` none
    (the fused launch beside the loss-only one; the design it replaced is
@@ -120,7 +131,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 12. a ``summary`` line (each step's status, its largest error and its
     device idle shares; printed also when a step fails, before the error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
-    with its times and launches; ``pairwise_rank`` adds its loss-only route,
+    with its times and launches; ``select_topk`` adds its design and the op's
+    time host included, ``pairwise_rank`` its loss-only route,
     ``flash_attention`` the route its main shape took), then
     the card line, then
     ``{"ok": true, ...}``.  The last four lines stay within ~12 KB, so that
@@ -242,7 +254,7 @@ def card_line() -> str:
 
 
 def topk_inputs(torch, n, f, seed, *, h=HIDDEN, masked_frac=0.3,
-                zero_net=False, dup_groups=0, int_bias=False):
+                zero_net=False, dup_groups=0, int_bias=False, init_scale=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
 
@@ -251,7 +263,10 @@ def topk_inputs(torch, n, f, seed, *, h=HIDDEN, masked_frac=0.3,
 
     shapes = {"w1": (f, h), "b1": (h,), "w2": (h, h), "b2": (h,),
               "w3": (h, 1), "b3": (1,)}
-    params = {k: (torch.zeros(s, device=dev) if zero_net else normal(*s, scale=0.3))
+    def scale(s):   # 0.3, or the Q-net's init scale N(0, 1 / fan_in)
+        return (1.0 / (s[0] if len(s) == 2 else h)) ** 0.5 if init_scale else 0.3
+
+    params = {k: (torch.zeros(s, device=dev) if zero_net else normal(*s, scale=scale(s)))
               for k, s in shapes.items()}
     if dup_groups:
         base = normal(dup_groups, f)
@@ -317,6 +332,11 @@ def host_us(torch, fn, calls=1000, warmup=100):
 
 
 def cuda_ms(torch, fn, reps=25, warmup=5):
+    return statistics.median(cuda_times(torch, fn, reps, warmup))
+
+
+def cuda_times(torch, fn, reps=25, warmup=5):
+    """Milliseconds of each of ``reps`` calls, CUDA events around each."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -329,7 +349,7 @@ def cuda_ms(torch, fn, reps=25, warmup=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def cuda_ms_back_to_back(torch, fn, launches=20, reps=5, warmup=5):
@@ -460,6 +480,7 @@ def pairwise_bound_ms(torch, m, kind, hard):
 
 
 def phase_kernel_vs_plain(torch):
+    from repro_torch.kernels.select_topk import ops
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
     from repro_torch.kernels.select_topk.ref import select_topk_ref
 
@@ -497,11 +518,35 @@ def phase_kernel_vs_plain(torch):
         dict(n=4000, f=6, k=4000, seed=20, name="k-equals-n-4000"),
         dict(n=30_000, f=96, h=256, k=2000, seed=21, dup_groups=900,
              masked_frac=0.2, exact=True, name="wide-k2000-duplicate-rows"),
+        # the fleet's size with tied rows (the carried lists and the groups'
+        # merges), and k at each route's K_pad boundary: 256 is the largest
+        # carried list, 257 (K_pad 264) the smallest tree; at 1e5 rows
+        # (128-row tiles) and 1000 (64-row tiles)
+        dict(n=1_000_000, f=6, k=64, seed=22, dup_groups=5000, masked_frac=0.2,
+             exact=True, name="fleet-1e6-duplicate-rows"),
+        dict(n=100_000, f=6, k=256, seed=23, name="carry-k256"),
+        dict(n=100_000, f=6, k=257, seed=24, name="tree-k257"),
+        dict(n=1000, f=6, k=256, seed=25, name="carry-k256-n1000"),
+        dict(n=1000, f=6, k=257, seed=26, masked_frac=0.5, name="tree-k257-n1000"),
+        dict(n=300, f=6, k=8, seed=27, name="carry-k8"),
+        # every hidden width: the widest net whose activations stay in
+        # shared memory (H_pad 320) at the largest carried list, then the
+        # global path (H_pad > 320: activations through the scratch), with
+        # H % 4 != 0 (4-byte weight copies), the tree route and tied rows.
+        # Weights at the Q-net's init scale, N(0, 1 / fan_in): at a fixed
+        # 0.3 a 512-wide net's partial sums reach ~1e3, and a score near 0
+        # then carries more than 1e-5 of fp32 rounding in any summation order
+        dict(n=20_000, f=20, h=320, k=256, seed=28, init_scale=True, name="streamed-h320-k256"),
+        dict(n=20_000, f=20, h=384, k=64, seed=29, init_scale=True, name="global-h384"),
+        dict(n=5000, f=7, h=515, k=16, seed=30, init_scale=True, name="global-h515"),
+        dict(n=3000, f=40, h=1024, k=300, seed=31, init_scale=True, name="global-h1024-tree"),
+        dict(n=20_000, f=14, h=600, k=64, seed=32, dup_groups=700, masked_frac=0.2,
+             init_scale=True, exact=True, name="global-h600-duplicate-rows"),
     ]
     max_err, summary = 0.0, []
     for c in cases:
         kw = {key: c[key] for key in ("h", "masked_frac", "zero_net",
-                                      "dup_groups", "int_bias") if key in c}
+                                      "dup_groups", "int_bias", "init_scale") if key in c}
         params, feats, mask, bias = topk_inputs(torch, c["n"], c["f"], c["seed"], **kw)
         got_v, got_i = select_topk_cuda(params, feats, mask, bias, k=c["k"])
         ref_v, ref_i = select_topk_ref(params, feats, mask, bias, k=c["n"])
@@ -519,35 +564,155 @@ def phase_kernel_vs_plain(torch):
         max_err = max(max_err, err)
         summary.append([c.get("name", "random"), c["n"], c["f"],
                         c.get("h", HIDDEN), c["k"], err])
-    emit(phase="kernel_vs_plain", kernel="select_topk", cases=len(cases),
+    # a row's score does not depend on the route: the carried list's k = 64
+    # winners are the tree's first 64, bit for bit, on each scoring path
+    same_bits = []
+    for n, f, h in ((1_000_000, 14, HIDDEN), (100_000, 96, 256), (20_000, 20, 512)):
+        params, feats, mask, bias = topk_inputs(torch, n, f, seed=n + f, h=h,
+                                                init_scale=h > 256)
+        carry = select_topk_cuda(params, feats, mask, bias, k=64)
+        tree = select_topk_cuda(params, feats, mask, bias, k=300)
+        require(torch.equal(carry[0], tree[0][:64]) and torch.equal(carry[1], tree[1][:64]),
+                f"the carry and tree routes differ at N={n}, F={f}, H={h}")
+        same_bits.append([n, f, h])
+    emit(phase="kernel_vs_plain", kernel="select_topk", same_bits_by_route=same_bits)
+    # the op the paths call (host arrays in and out, one C call) at the main
+    # path's two shapes, against the plain version on the same inputs
+    for label, n, k, masked in (("op-main-probe-set", 1000, 20, 0.3),
+                                ("op-main-select", 25, 25, 0.0)):
+        params, states, m, bias, k = topk_op_inputs(torch, n, k, masked)
+        idx, vals = ops.select_topk(params, states, m, k, bias=bias)
+        ref_v, ref_i = select_topk_ref(
+            params, torch.as_tensor(states, dtype=torch.float32, device="cuda"),
+            torch.as_tensor(m, dtype=torch.float32, device="cuda"),
+            torch.as_tensor(bias, dtype=torch.float32, device="cuda"), k=n)
+        k_eff = min(k, int(m.sum()))
+        err = check_topk(torch, ref_v, ref_i, torch.as_tensor(vals), torch.as_tensor(idx),
+                         k_eff, False)
+        max_err = max(max_err, err)
+        summary.append([label, n, 6, HIDDEN, k, err])
+    emit(phase="kernel_vs_plain", kernel="select_topk", cases=len(summary),
          tolerance="1e-5*max(1,|v|)", max_abs_err=max_err, results=summary)
     return max_err
 
 
+def topk_op_inputs(torch, n, k, masked_frac, f=6):
+    """The op's inputs at a main-path shape: a Q-net on the card, float64
+    host states, a bool availability mask and a fairness bias."""
+    import numpy as np
+
+    params, _, _, _ = topk_inputs(torch, n, f, seed=n + k)
+    rng = np.random.default_rng(n)
+    states = rng.normal(size=(n, f))
+    m = rng.random(n) >= masked_frac
+    bias = -0.05 * np.sqrt(rng.integers(0, 5, n).astype(np.float64))
+    return params, states, m, bias, k
+
+
+# 1e6 candidates; the main path's fleet cut (probe_set, N=1000, k=20) and
+# its probe-cohort ordering (select, N=25, k=25); the "telemetry" feature
+# width (F=14) at 1e6; a wide net (F=96, H=256), a wider one whose
+# activations go through the scratch (H=512) and k=2000 (the tree route)
+TOPK_SHAPES = (("fleet_1e6", 1_000_000, 6, HIDDEN, 64),
+               ("fleet_1e6_f14", 1_000_000, 14, HIDDEN, 64),
+               ("main_probe_set", 1000, 6, HIDDEN, 20),
+               ("main_select", 25, 6, HIDDEN, 25),
+               ("wide_f96_h256", 100_000, 96, 256, 64),
+               ("wide_f20_h512", 100_000, 20, 512, 64),
+               ("k2000", 100_000, 6, HIDDEN, 2000))
+
+
 def phase_timings(torch, card):
-    from repro_torch.kernels.select_topk.kernel import select_topk_cuda
+    """Each shape: the device wrapper (CUDA events around each call, the
+    wrapper's host time included) and the plain version in turns (kernel,
+    plain, plain, kernel; each side's time the median of its 50 calls, each
+    turn's median in ``*_runs``), the bound and the launches a call."""
+    from repro_torch.kernels.select_topk.kernel import launch_config, select_topk_cuda
     from repro_torch.kernels.select_topk.ref import select_topk_ref
 
     rows = {}
-    # 1e6 candidates; the main path's fleet cut (probe_set, N=1000, k=20)
-    # and its probe-cohort ordering (select, N=25, k=25)
-    # and the "telemetry" feature width (F=14) at 1e6
-    # and, past the first design's caps, a wide net (F=96, H=256) and k=2000
-    for label, n, f, h, k in (("fleet_1e6", 1_000_000, 6, HIDDEN, 64),
-                              ("fleet_1e6_f14", 1_000_000, 14, HIDDEN, 64),
-                              ("main_probe_set", 1000, 6, HIDDEN, 20),
-                              ("main_select", 25, 6, HIDDEN, 25),
-                              ("wide_f96_h256", 100_000, 96, 256, 64),
-                              ("k2000", 100_000, 6, HIDDEN, 2000)):
+    for label, n, f, h, k in TOPK_SHAPES:
         params, feats, mask, bias = topk_inputs(torch, n, f, seed=n + f, h=h)
-        ms = cuda_ms(torch, lambda: select_topk_cuda(params, feats, mask, bias, k=k))
-        plain = cuda_ms(torch, lambda: select_topk_ref(params, feats, mask, bias, k=k))
+        kern = lambda: select_topk_cuda(params, feats, mask, bias, k=k)   # noqa: E731
+        plain = lambda: select_topk_ref(params, feats, mask, bias, k=k)   # noqa: E731
+        t = [cuda_times(torch, fn) for fn in (kern, plain, plain, kern)]
+        med = statistics.median
+        ms = med(t[0] + t[3])
         bound, bound_by = topk_bound_ms(n, f, h, k)
-        rows[label] = dict(n=n, f=f, h=h, k=k, ms=ms, plain_ms=plain,
-                           bound_ms=bound, bound_by=bound_by)
+        cfg = launch_config(n, f, h, k)
+        rows[label] = dict(n=n, f=f, h=h, k=k, ms=ms, ms_runs=[med(t[0]), med(t[3])],
+                           plain_ms=med(t[1] + t[2]), plain_ms_runs=[med(t[1]), med(t[2])],
+                           bound_ms=bound, bound_by=bound_by, kernel_vs_bound=ms / bound,
+                           ms_back_to_back=cuda_ms_back_to_back(torch, kern),
+                           route=cfg["route"], path=cfg["path"],
+                           launches_per_call=cfg["launches"])
         emit(phase="timing", kernel="select_topk", shape=label, card=card,
              **rows[label])
     return rows
+
+
+def old_topk_op(select_topk_cuda, params, states, mask, k, bias):
+    """The op's Q-net path before the one-call route: six parameter copies,
+    three pageable uploads, the device wrapper, two ``.cpu()`` downloads."""
+    import numpy as np
+    import torch
+
+    n = states.shape[0]
+    m = mask.astype(bool)
+    k_eff = min(int(k), int(m.sum()))
+    dev = params["w1"].device
+    p = {name: t.detach().float().contiguous() for name, t in params.items()}
+    feats = torch.as_tensor(np.ascontiguousarray(states, np.float32), device=dev)
+    mt = torch.as_tensor(m.astype(np.float32), device=dev)
+    bt = torch.as_tensor(np.ascontiguousarray(np.asarray(bias, np.float32)), device=dev)
+    vals, idx = select_topk_cuda(p, feats, mt, bt, k=min(int(k), n))
+    return (idx[:k_eff].cpu().numpy().astype(np.int64),
+            vals[:k_eff].cpu().numpy().astype(np.float32))
+
+
+def phase_topk_host(torch, card, calls=1000):
+    """The op the paths call (``ops.select_topk`` with the Q-net on the
+    card: one C call from pinned buffers) at the main path's two shapes,
+    host included (``time.perf_counter`` over ``calls`` calls after 100 of
+    warm-up), beside the sequence it replaced (:func:`old_topk_op`), in
+    turns (old, new, new, old; each side's time the mean of its 2000 calls,
+    each turn's mean in ``*_runs``); then the device kernels per op call, from
+    ``torch.profiler`` over 20 calls."""
+    import numpy as np
+
+    from repro_torch.kernels.select_topk import ops
+    from repro_torch.kernels.select_topk.kernel import select_topk_cuda
+
+    out = {}
+    for label, n, k, masked in (("main_probe_set", 1000, 20, 0.3),
+                                ("main_select", 25, 25, 0.0)):
+        params, states, m, bias, k = topk_op_inputs(torch, n, k, masked)
+        new = lambda: ops.select_topk(params, states, m, k, bias=bias)    # noqa: E731
+        old = lambda: old_topk_op(select_topk_cuda, params, states, m, k, bias)  # noqa: E731
+        got, want = new(), old()
+        require(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+                f"{label}: the op and the old sequence disagree")
+        t = []
+        for fn in (old, new, new, old):
+            for _ in range(100):
+                fn()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t.append(1e3 * (time.perf_counter() - t0) / calls)
+        wall, rows, dev_us, _ = device_profile(torch, lambda: [new() for _ in range(20)])
+        kern = [e for e in rows if "Memcpy" not in e.key and "Memset" not in e.key]
+        per_call = sum(e.count for e in kern) / 20
+        require(per_call == 1, f"{label}: {per_call} device kernels an op call: "
+                f"{[(e.key[:60], e.count) for e in kern]}")
+        out[label] = dict(n=n, k=k, calls=calls, op_ms=(t[1] + t[2]) / 2,
+                          op_ms_runs=[t[1], t[2]], old_sequence_ms=(t[0] + t[3]) / 2,
+                          old_sequence_ms_runs=[t[0], t[3]],
+                          device_kernels_per_op_call=per_call,
+                          kernel_device_us=sum(dev_us(e) for e in kern) / 20)
+        emit(phase="timing", kernel="select_topk", shape=f"op_host_included_{label}",
+             card=card, **out[label])
+    return out
 
 
 def small_data(n_samples, n_clients):
@@ -635,7 +800,7 @@ def phase_profile(torch, srv, policy):
         torch, lambda: res.append(srv.run_round(policy)))
     busy_s = sum(dev_us(e) for e in rows) / 1e6
     sel_s = sum(dev_us(e) for e in rows
-                if "score_tile_topk" in e.key or "merge_pairs" in e.key) / 1e6
+                if "select_topk_fused" in e.key or "merge_pairs" in e.key) / 1e6
     top = sorted(rows, key=dev_us, reverse=True)[:8]
     emit(phase="profile", policy=policy.name, round=res[0].round, wall_s=wall,
          device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
@@ -1391,7 +1556,7 @@ def phase_async_profile(torch, srv, policy):
     busy_s = sum(dev_us(e) for e in rows) / 1e6
     fleet_s = sum(dev_us(e) for e in rows if "segment_index" in e.key) / 1e6
     sel_s = sum(dev_us(e) for e in rows
-                if "score_tile_topk" in e.key or "merge_pairs" in e.key) / 1e6
+                if "select_topk_fused" in e.key or "merge_pairs" in e.key) / 1e6
     top = sorted(rows, key=dev_us, reverse=True)[:8]
     emit(phase="profile", path="async", policy=policy.name, wall_s=wall,
          device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
@@ -2140,9 +2305,13 @@ def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, tim
     the kernels (this tree's route), and the same step with the mixers'
     ops swapped for their plain versions (the route decode took before
     SSM decode went through the kernels), in turns.  Each window: 8 steps
-    under torch.profiler (device kernels, SSM-kernel launches and device
-    busy ms per step) and 32 unprofiled steps (wall ms per step, host clock
-    around a final synchronise)."""
+    under torch.profiler (device kernels, SSM-kernel events and device
+    busy ms per step; SSM-kernel launches per step from the wrappers'
+    counters, which must be one a layer) and 32 unprofiled steps (wall ms
+    per step, host clock around a final synchronise).  The profiler can
+    lose events when a window holds ~39,000 kernels (one SSM event of 256
+    and 105 others in one window on an H100), so its counts are reported
+    and the launches are checked by the counters."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2172,10 +2341,12 @@ def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, tim
                 for _ in range(warm):
                     logits, state = T._decode_step_into(params, cfg, state, nxt)
                 torch.cuda.synchronize()
+                before = read_counts()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(profiled):
                         logits, state = T._decode_step_into(params, cfg, state, nxt)
                     torch.cuda.synchronize()
+                after = read_counts()
                 t0 = time.perf_counter()
                 for _ in range(timed):
                     logits, state = T._decode_step_into(params, cfg, state, nxt)
@@ -2191,12 +2362,17 @@ def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, tim
             require(bool(torch.isfinite(logits).all()), f"{arch} decode ({route}) not finite")
             out.setdefault(arch, {}).setdefault(route, []).append(dict(
                 kernels_per_step=sum(e.count for e in rows) / profiled,
-                ssm_kernel_launches_per_step=ssm / profiled,
+                ssm_kernel_launches_per_step=sum(after[k] - before[k]
+                                                 for k in ("mamba", "rwkv6")) / profiled,
+                ssm_kernel_events_per_step=ssm / profiled,
                 ssm_kernel_device_ms_per_step=sum(
                     getattr(e, "self_device_time_total", 0.0) for e in ssm_rows) / 1e3 / profiled,
                 device_busy_ms_per_step=busy_us / 1e3 / profiled, wall_ms_per_step=wall_ms))
         require(all(r["ssm_kernel_launches_per_step"] == cfg.n_layers
-                    for r in out[arch]["kernels"]), f"{arch}: {out[arch]['kernels']}")
+                    and r["ssm_kernel_events_per_step"] > 0
+                    for r in out[arch]["kernels"])
+                and all(r["ssm_kernel_launches_per_step"] == 0 for r in out[arch]["plain"]),
+                f"{arch}: {out[arch]}")
         emit(phase="decode_profile", path="ssm_serving", model=arch, batch=batch,
              prompt=prompt, order="kernels, plain, plain, kernels", **out[arch])
         del params, state, logits
@@ -2293,10 +2469,17 @@ def run_phases(torch, card, only=()):
         for lib, path in zip(libraries, built):
             emit(phase="build", kernel=lib.name, seconds=seconds,
                  library=str(path.relative_to(ROOT)), ptxas=ptxas_lines(lib.build_log))
-        for lib in (mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY):
+        for lib in (mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY, select_topk_kernel.LIBRARY):
             spills = spill_bytes(lib.build_log)
             require(lib.build_log == "" or not any(spills),
                     f"{lib.name}: ptxas reports spills {spills}")
+        # select_topk's configurations at the timed shapes (path, grid, route)
+        topk_configs = [dict(shape=label, n=n, f=f, h=h, k=k,
+                             **select_topk_kernel.launch_config(n, f, h, k))
+                        for label, n, f, h, k in TOPK_SHAPES]
+        emit(phase="launch_config", kernel="select_topk", configs=topk_configs)
+        require(all(c["local_bytes"] == 0 and c["resident_per_sm"] >= 1
+                    for c in topk_configs), "select_topk: spills or no resident CTA")
         # every instantiation: rwkv6's (n, B * H) routes, mamba's lane splits
         emit(phase="launch_config", kernel="rwkv6",
              configs=[dict(n=n, heads=bh, **rwkv6_kernel.launch_config(n, bh))
@@ -2311,6 +2494,7 @@ def run_phases(torch, card, only=()):
         with step("select_topk"):
             max_err = phase_kernel_vs_plain(torch)
             timings = phase_timings(torch, card)
+            topk_host = phase_topk_host(torch, card)
     if want("pairwise_rank"):
         with step("pairwise_rank"):
             pr_errs = phase_pairwise_vs_plain(torch)
@@ -2389,10 +2573,21 @@ def run_phases(torch, card, only=()):
     fs_main = fs_timings["main_week"]
     fa_main = fa_timings["yi_prefill"]
     return [
-        kernel_entry("select_topk", "src/repro_torch/csrc/select_topk.cu",
-                     "src/repro/kernels/select_topk/kernel.py:98",
-                     sync_counts["select_topk"], max_err, main_shape,
-                     {k: main_shape[k] for k in ("n", "f", "h", "k")}),
+        dict(kernel_entry("select_topk", "src/repro_torch/csrc/select_topk.cu",
+                          "src/repro/kernels/select_topk/kernel.py:98",
+                          sync_counts["select_topk"], max_err, main_shape,
+                          {k: main_shape[k] for k in ("n", "f", "h", "k")}),
+             design="register-tiled fp32 scoring; a carried top-K per CTA "
+                    "behind a before(row, kth) filter, merged by the last CTA "
+                    "(one launch) for K_pad <= 256, a merge tree above",
+             library_note="none: no one PyTorch call scores with the MLP and cuts "
+                          "a lowest-index-tie top-K",
+             op_host_included_ms=topk_host["main_probe_set"]["op_ms"],
+             old_sequence_ms=topk_host["main_probe_set"]["old_sequence_ms"],
+             op_host_included_ms_n25=topk_host["main_select"]["op_ms"],
+             device_kernels_per_op_call={k: r["device_kernels_per_op_call"]
+                                         for k, r in topk_host.items()},
+             ms_by_shape={k: r["ms"] for k, r in timings.items()}),
         dict(kernel_entry("pairwise_rank", "src/repro_torch/csrc/pairwise_rank.cu",
                           "src/repro/kernels/pairwise_rank/kernel.py:61",
                           il_counts["pairwise_rank_fused"],

@@ -5,9 +5,11 @@ contract (candidates by score descending, exact ties toward the LOWEST
 index, masked candidates excluded, exactly ``min(k, n_valid)`` winners):
 
 * ``scores_fn`` is a Q-net params dict (w1/b1/w2/b2/w3/b3) — the fused path.
-  The params' device decides: on the card the CUDA kernel
-  (:func:`~repro_torch.kernels.select_topk.kernel.select_topk_cuda`) scores
-  and selects in one call; on the CPU the plain version does.
+  The params' device decides: on the card one C call
+  (:func:`~repro_torch.kernels.select_topk.kernel.select_topk_host`) uploads
+  states, mask and bias from one pinned record buffer, launches the kernel
+  once and downloads the winners; on the CPU the plain version scores and
+  selects.
 * ``scores_fn`` is a callable — analytical utilities: scored in one call,
   then partial-selected on the host (:func:`topk_indices`).
 * ``scores_fn`` is None — ``states`` already ARE the scores.
@@ -22,7 +24,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels.select_topk.kernel import select_topk_cuda
+from repro_torch.kernels.select_topk.kernel import select_topk_host
 from repro_torch.kernels.select_topk.ref import NEG_INF, stable_topk
 
 
@@ -79,17 +81,8 @@ def select_topk(scores_fn: Union[dict, Callable[[np.ndarray], np.ndarray], None]
         return np.empty(0, np.int64), np.empty(0, np.float32)
 
     if isinstance(scores_fn, dict):              # fused Q-net path
-        dev = scores_fn["w1"].device
-        params = {name: t.detach().float().contiguous()
-                  for name, t in scores_fn.items()}
-        b = (np.zeros(n, np.float32) if bias is None
-             else np.asarray(bias, np.float32))
-        feats = torch.as_tensor(np.ascontiguousarray(states, np.float32), device=dev)
-        mt = torch.as_tensor(m.astype(np.float32), device=dev)
-        bt = torch.as_tensor(np.ascontiguousarray(b), device=dev)
-        vals, idx = select_topk_cuda(params, feats, mt, bt, k=min(int(k), n))
-        return (idx[:k_eff].cpu().numpy().astype(np.int64),
-                vals[:k_eff].cpu().numpy().astype(np.float32))
+        vals, idx = select_topk_host(scores_fn, states, m, bias, k=min(int(k), n))
+        return idx[:k_eff], vals[:k_eff]
 
     scores = states if scores_fn is None else np.asarray(scores_fn(states))
     scores = np.asarray(scores, np.float64)

@@ -19,7 +19,7 @@ import repro.kernels.select_topk.ops as jops
 from repro.kernels.select_topk.kernel import select_topk_pallas
 from repro.kernels.select_topk.ref import select_topk_ref as jax_select_topk_ref
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels.select_topk.kernel import k_padded, select_topk_cuda
+from repro_torch.kernels.select_topk.kernel import k_padded, select_topk_cuda, select_topk_host
 from repro_torch.kernels.select_topk.ops import masked_topk, select_topk, topk_indices
 from repro_torch.kernels.select_topk.ref import NEG_INF, select_topk_ref
 
@@ -176,6 +176,45 @@ def test_wrapper_other_devices_raise():
         select_topk_cuda(q, torch.empty(10, 6, device="meta"),
                          torch.empty(10, device="meta"),
                          torch.empty(10, device="meta"), k=3)
+
+
+def test_host_entry_cpu_takes_plain_version_without_counting():
+    """The one-call host entry on CPU parameters: the plain version on the
+    packed records, exactly; None mask and bias mean all valid and zeros."""
+    q, feats, mask, bias = _inputs(60, 6, seed=3)
+    params = params_from_numpy(q, "cpu")
+    before = select_topk_cuda.launches
+    v, i = select_topk_host(params, feats.astype(np.float64), mask > 0, bias, k=9)
+    rv, ri = _port(q, feats, mask, bias, 9)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(v, rv)
+    assert i.dtype == np.int64 and v.dtype == np.float32
+    v, i = select_topk_host(params, feats, None, None, k=60)
+    rv, ri = _port(q, feats, np.ones(60, np.float32), np.zeros(60, np.float32), 60)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(v, rv)
+    assert select_topk_cuda.launches == before
+
+
+def test_host_entry_other_devices_raise():
+    q = {k: torch.empty(v.shape, device="meta")
+         for k, v in _qnet(np.random.default_rng(0), 6).items()}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        select_topk_host(q, np.zeros((10, 6)), None, None, k=3)
+
+
+def test_op_takes_parameters_that_require_grad():
+    """The Q-net under training: its parameters require grad; the op's
+    result is plain host arrays all the same."""
+    rng = np.random.default_rng(11)
+    q = _qnet(rng, 6)
+    params = {k: v.requires_grad_(True) for k, v in params_from_numpy(q, "cpu").items()}
+    states = rng.normal(size=(40, 6))
+    idx, vals = select_topk(params, states, None, 5)
+    rv, ri = _port(q, states.astype(np.float32), np.ones(40, np.float32),
+                   np.zeros(40, np.float32), 5)
+    np.testing.assert_array_equal(idx, ri)
+    np.testing.assert_array_equal(vals, rv)
 
 
 def test_k_padded():
