@@ -6,6 +6,7 @@
 With no argument it runs every step below.  Given step names (``build``,
 ``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
 ``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
+``path5_async``, ``vmapped``, ``path8_hierarchy``, ``path6_lm``,
 ``path7_ssm``) it builds every library, runs only those steps and ends with
 the summary line and the card line; the ``kernels`` line and the last line
 need the whole run.
@@ -83,7 +84,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    one PyTorch call computes either);
 4. the CPU and the card agree: one round of every policy at 50 devices picks
    the same cohorts, 5 imitation-pretraining steps from the same Q-net give
-   the same Q-net, an asynchronous trace run schedules the same jobs, and the
+   the same Q-net, an asynchronous trace run schedules the same jobs, one
+   hierarchical FedRank round and one ``krum`` round on
+   ``byzantine-signflip`` give the same cohorts and adversaries (params
+   within 1e-4), and the
    yi-6b, h2o-danube, hymba and rwkv6 smoke LMs give the same logits over a
    prefill (by the kernels) and 8 decode steps; at full width (2 layers,
    fp32) prefill by the kernels and decode through the ring cache and the
@@ -106,6 +110,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    aggregations each on ``trace-synthetic-week`` and ``fedrank`` on
    ``high-churn``, one more aggregation under ``torch.profiler``, and the
    batched event loop against its sequential oracle;
+   then ``vmapped``: the configurations of paths 1 (``fedavg`` and
+   ``fedrank``), 4 and 5 under ``executor="vmapped"`` and ``"sequential"``
+   in turns, 3 rounds or aggregations each: equal ``fedavg`` cohorts and
+   params within 1e-5 per round (sync rounds start from one global model),
+   host s per round, and one profiled round or aggregation of each (device
+   kernels, idle share);
+   then path 8, ``path8_hierarchy``, at path 1's width with the vmapped
+   executor: on ``hierarchical`` (budgets 4/3/3) ``fedavg`` and ``fedrank``,
+   3 sync rounds and 3 ``HierarchicalAsyncEngine`` aggregations each, under
+   ``region_exec="stacked"`` and ``"sequential"`` in turns (identical
+   cohorts, failures, clock and tier lags, params within 1e-5; every cut
+   online, unique, in its region and within its budget; ``select_topk``
+   launches per round; one profiled round or aggregation), 3 FedRank rounds
+   on ``regional-outage`` (a dark region is skipped), and
+   ``byzantine-signflip`` under ``mean``, ``trimmed_mean`` (trim 3),
+   ``coordinate_median``, ``krum`` and ``multi_krum`` (f 3), sync and async
+   (every adversary in the static mask and in its cohort);
 10. path 6, LM serving at full width and depth in bf16: ``serve`` on Yi-6B
     (batch 4, prompt 1024, 32 new tokens; one ``flash_attention`` launch per
     layer, every one on the tensor-core kernel), on h2o-danube-3-4b (batch
@@ -128,8 +149,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     alone (batch 4 after a 128-token prefill) by the kernels and with the
     mixers' plain versions, in turns: kernels, SSM launches, device and
     wall ms per step;
-12. a ``summary`` line (each step's status, its largest error and its
-    device idle shares; printed also when a step fails, before the error),
+12. a ``summary`` line (each step's status, host seconds, largest error
+    and device idle shares; printed also when a step fails, before the
+    error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
     with its times and launches; ``select_topk`` adds its design and the op's
     time host included, ``pairwise_rank`` its loss-only route,
@@ -217,13 +239,16 @@ def emit(**kw) -> None:
 
 @contextlib.contextmanager
 def step(name):
-    """A step of main(): "fail" until its body returns."""
+    """A step of main(): "fail" until its body returns; its host seconds
+    go into the summary either way."""
     _STEPS[name] = {"status": "fail"}
     _CURRENT.append(name)
+    t0 = time.perf_counter()
     try:
         yield
     finally:
         _CURRENT.pop()
+        _STEPS[name]["seconds"] = round(time.perf_counter() - t0, 1)
     _STEPS[name]["status"] = "pass"
 
 
@@ -1596,6 +1621,299 @@ def phase_async_oracle(torch, data):
 
 
 # ---------------------------------------------------------------------------
+# the vmapped executor (paths 1, 4, 5) and the hierarchy (path 8)
+# ---------------------------------------------------------------------------
+
+EXEC_TOL = 1e-5              # vmapped vs sequential executor: fp32 sums in another order
+CPU_CARD_TOL = 1e-4          # CPU vs card after a round: fp32 sums in another order
+
+
+def params_diff(a, b) -> float:
+    """Largest absolute difference between two parameter dicts."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def profile_summary(torch, fn) -> dict:
+    """Wall s, device kernels, busy s and idle share of one profiled call."""
+    wall, rows, dev_us, _ = device_profile(torch, fn)
+    busy_s = sum(dev_us(e) for e in rows) / 1e6
+    return dict(wall_s=wall, device_kernels=sum(e.count for e in rows),
+                device_busy_s=busy_s,
+                device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured")
+
+
+def checked_policy(policy, srv, budgets=None):
+    """Wrap ``policy.select`` so every cut it makes is checked: unique, online
+    (inside ``ctx.available``), at most ``ctx.k``, and inside the context's
+    region and that region's budget when the round is hierarchical.
+    Returns the list of (region id, cohort) it saw."""
+    import numpy as np
+
+    seen = []
+    select = policy.select
+
+    def checked(ctx, probe_ids, probe_states):
+        sel = np.asarray(select(ctx, probe_ids, probe_states), dtype=np.int64)
+        ids = sel.tolist()
+        require(len(ids) == len(set(ids)) <= ctx.k, (policy.name, ids, ctx.k))
+        require(bool(ctx.available[sel].all()), (policy.name, "offline device selected"))
+        if ctx.region_id is not None:
+            require(bool((srv.pool.region[sel] == ctx.region_id).all()),
+                    (policy.name, "selection outside its region"))
+            if budgets is not None:
+                require(len(ids) <= budgets[ctx.region_id], (ids, budgets))
+        seen.append((ctx.region_id, ids))
+        return sel
+
+    policy.select = checked
+    return seen
+
+
+def phase_vmapped(torch, data):
+    """Paths 1, 4 and 5 under ``executor="vmapped"`` beside ``"sequential"``,
+    in turns, on the card: the same fedavg cohorts (and jobs) and params within
+    EXEC_TOL per round or aggregation (sync rounds start from one global
+    model: the sequential server's is copied into the vmapped one before each
+    round); host s per round or aggregation, then one profiled round or
+    aggregation of each (device kernels, idle share).  FedRank on path 1 is
+    timed beside it, its cohorts reported."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+    from repro_torch.fl.async_engine import AsyncRoundEngine
+
+    out = {}
+    for label, scenario, mode, policy_name in (
+            ("path1", "high-churn", "sync", "fedavg"),
+            ("path1", "high-churn", "sync", "fedrank"),
+            ("path4", "trace-synthetic-week", "sync", "fedavg"),
+            ("path5", "trace-synthetic-week", "async", "fedavg")):
+        runs = {}
+        for ex in ("sequential", "vmapped"):
+            kw = (dict(mode="async", async_concurrency=30, staleness="polynomial")
+                  if mode == "async" else {})
+            cfg = FLConfig(n_devices=1000, k_select=10, rounds=3, l_ep=5,
+                           scenario=scenario, executor=ex, **kw)
+            srv = FLServer(cfg, MLPTask(), data, device="cuda")
+            if scenario.startswith("trace"):
+                start_before_first_change(srv)
+            pol = build_policy(policy_name, k=10) if policy_name == "fedrank" \
+                else build_policy(policy_name)
+            runs[ex] = dict(srv=srv, pol=pol, host_s=[], cohorts=[],
+                            eng=AsyncRoundEngine(srv, pol) if mode == "async" else None)
+        seq, vm = runs["sequential"], runs["vmapped"]
+        errs, same = [], []
+        for r in range(3):
+            order = ("sequential", "vmapped") if r % 2 == 0 else ("vmapped", "sequential")
+            if mode == "sync":
+                vm["srv"].global_params = {k: v.clone() for k, v in
+                                           seq["srv"].global_params.items()}
+            for ex in order:
+                run = runs[ex]
+                if mode == "sync":
+                    res = run["srv"].run_round(run["pol"])
+                    check_round(run["srv"], res, 10)
+                else:
+                    res = run["eng"].run(1)[-1]
+                    check_async_history(torch, run["srv"], [res], 10)
+                run["host_s"].append(res.host_time_s)
+                run["cohorts"].append(res.selected.tolist())
+                require(res.executor == ex, (res.executor, ex))
+            same.append(seq["cohorts"][-1] == vm["cohorts"][-1])
+            errs.append(params_diff(seq["srv"].global_params, vm["srv"].global_params))
+            if policy_name == "fedavg":
+                require(same[-1], (label, r, seq["cohorts"][-1], vm["cohorts"][-1]))
+                require(errs[-1] <= EXEC_TOL, (label, r, errs[-1]))
+        profiles = {}
+        for ex in ("sequential", "vmapped"):
+            run = runs[ex]
+            fn = ((lambda run=run: run["srv"].run_round(run["pol"])) if mode == "sync"
+                  else (lambda run=run: run["eng"].run(1)))
+            profiles[ex] = profile_summary(torch, fn)
+        key = f"{label}/{mode}/{policy_name}"
+        out[key] = {ex: dict(host_s=runs[ex]["host_s"], **profiles[ex])
+                    for ex in ("sequential", "vmapped")}
+        out[key]["same_cohorts"] = same
+        out[key]["max_param_diff"] = errs
+        emit(phase="vmapped", run=key, tolerance=EXEC_TOL, **out[key])
+    return out
+
+
+PATH8_BUDGETS = (4, 3, 3)    # k=10 split over metro / suburban / rural
+
+
+def path8_config(**kw):
+    from repro_torch.fl import FLConfig
+
+    base = dict(n_devices=1000, k_select=10, rounds=3, l_ep=5,
+                scenario="hierarchical", executor="vmapped",
+                region_budgets=list(PATH8_BUDGETS))
+    base.update(kw)
+    return FLConfig(**base)
+
+
+def result_key(res):
+    """What must be identical between two executions of one round."""
+    return (res.round, res.selected.tolist(), res.probe_set.tolist(),
+            res.failed.tolist(), res.stragglers.tolist(), res.adversaries.tolist(),
+            res.r_t, res.r_e, res.cum_time, res.cum_energy, res.n_available,
+            res.mean_staleness, res.max_staleness, sorted(res.tier_staleness.items()))
+
+
+def phase_hierarchy_path(torch, data):
+    """Path 8: the hierarchy at the main path's width on the card.  On
+    ``hierarchical`` (three regions, budgets 4/3/3), fedavg and fedrank, 3
+    sync rounds and 3 ``HierarchicalAsyncEngine`` aggregations each, with
+    ``region_exec="stacked"`` and ``"sequential"`` in turns: identical
+    cohorts, failures, clock and tier lags, params within EXEC_TOL; every
+    cut online, unique, in its region and within its budget; select_topk
+    launches per round.  Then 3 rounds on ``regional-outage`` and
+    ``byzantine-signflip`` under each aggregator, sync and async (the
+    adversaries a subset of the static mask)."""
+    from repro_torch.fl import build_policy
+    from repro_torch.fl.topology import HierarchicalAsyncEngine
+    from repro_torch.kernels.select_topk.kernel import select_topk_cuda
+
+    out = {}
+    reset_counts()                                # every count to 0
+    for policy_name in ("fedavg", "fedrank"):
+        for mode in ("sync", "async"):
+            runs = {}
+            for region_exec in ("stacked", "sequential"):
+                kw = (dict(mode="async", async_concurrency=30,
+                           staleness="polynomial") if mode == "async" else {})
+                srv = cuda_server(path8_config(region_exec=region_exec, **kw), data)
+                pol = (build_policy("fedrank", k=10) if policy_name == "fedrank"
+                       else build_policy("fedavg"))
+                runs[region_exec] = dict(
+                    srv=srv, pol=pol, host_s=[], launches=[], results=[],
+                    cuts=checked_policy(pol, srv, PATH8_BUDGETS),
+                    eng=HierarchicalAsyncEngine(srv, pol) if mode == "async" else None)
+            for r in range(3):
+                order = (("stacked", "sequential") if r % 2 == 0
+                         else ("sequential", "stacked"))
+                for region_exec in order:
+                    run = runs[region_exec]
+                    before = select_topk_cuda.launches
+                    res = (run["srv"].run_round(run["pol"]) if mode == "sync"
+                           else run["eng"].run(1)[-1])
+                    run["launches"].append(select_topk_cuda.launches - before)
+                    run["host_s"].append(res.host_time_s)
+                    run["results"].append(res)
+                    require(math.isfinite(res.acc), res.acc)
+                    require(res.tier_staleness, "no tier lags recorded")
+                a, b = runs["stacked"]["results"][-1], runs["sequential"]["results"][-1]
+                require(result_key(a) == result_key(b),
+                        ("stacked != sequential", result_key(a), result_key(b)))
+            st, sq = runs["stacked"], runs["sequential"]
+            err = params_diff(st["srv"].global_params, sq["srv"].global_params)
+            require(err <= EXEC_TOL, ("stacked vs sequential params", err))
+            bitwise = all(bool(torch.equal(t, sq["srv"].global_params[k]))
+                          for k, t in st["srv"].global_params.items())
+            for key_, t in st["srv"].global_params.items():
+                require(t.is_cuda and bool(torch.isfinite(t).all()), key_)
+            require(policy_name != "fedrank" or all(n > 0 for n in st["launches"]),
+                    st["launches"])
+            prof = profile_summary(
+                torch, (lambda: st["srv"].run_round(st["pol"])) if mode == "sync"
+                else (lambda: st["eng"].run(1)))
+            key = f"hierarchical/{mode}/{policy_name}"
+            out[key] = dict(
+                cohorts=[r.selected.tolist() for r in st["results"]],
+                regions_cut=sorted({rid for rid, _ in st["cuts"]}),
+                tier_staleness=[r.tier_staleness for r in st["results"]],
+                host_s_stacked=st["host_s"], host_s_sequential=sq["host_s"],
+                select_topk_launches_per_round=st["launches"],
+                params_bitwise_equal=bitwise, max_param_diff=err, profiled=prof)
+            emit(phase="path8", run=key, **out[key])
+
+    # regional outages: a dark region is skipped
+    srv = cuda_server(path8_config(scenario="regional-outage", region_budgets=None,
+                                    seed=2), data)
+    pol = build_policy("fedrank", k=10)
+    cuts = checked_policy(pol, srv)
+    dark = []
+    for _ in range(3):
+        res = srv.run_round(pol)
+        present = {k.split(":", 1)[1] for k in res.tier_staleness if k.startswith("region:")}
+        sel_regions = {srv.pool.region_names[i] for i in srv.pool.region[res.selected]}
+        require(sel_regions <= present, (sel_regions, present))
+        dark.append(sorted(set(srv.pool.region_names) - present))
+    out["regional-outage/sync/fedrank"] = dict(dark_regions=dark,
+                                               cuts=len(cuts))
+    emit(phase="path8", run="regional-outage/sync/fedrank", dark_regions=dark)
+
+    # Byzantine clients under every aggregator, sync and async
+    adversaries_seen = 0
+    for mode in ("sync", "async"):
+        for aggregator in ("mean", "trimmed_mean", "coordinate_median", "krum",
+                           "multi_krum"):
+            kw = (dict(mode="async", async_concurrency=30, staleness="polynomial")
+                  if mode == "async" else {})
+            srv = cuda_server(path8_config(scenario="byzantine-signflip",
+                                            region_budgets=None,
+                                            aggregator=aggregator, agg_trim=3,
+                                            agg_f=3, **kw), data)
+            pol = build_policy("fedavg")
+            checked_policy(pol, srv)
+            t0 = time.perf_counter()
+            hist = srv.run(pol)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            mask = srv.attack.adversary_mask(srv.cfg.n_devices, srv.cfg.seed)
+            for res in hist:
+                require(bool(mask[res.adversaries].all()), "adversary outside the mask")
+                require(set(res.adversaries.tolist()) <= set(res.selected.tolist()),
+                        (res.adversaries, res.selected))
+                adversaries_seen += len(res.adversaries)
+            if mode == "async":
+                check_async_history(torch, srv, hist, 10)
+            key = f"byzantine-signflip/{mode}/{aggregator}"
+            out[key] = dict(acc=[r.acc for r in hist], seconds=seconds,
+                            adversaries=[r.adversaries.tolist() for r in hist],
+                            host_s=[r.host_time_s for r in hist])
+            emit(phase="path8", run=key, **out[key])
+    require(adversaries_seen > 0, "no adversary in any Byzantine run")
+    counts = read_counts()                        # read just after
+    require(counts["select_topk"] > 0, counts)
+    emit(phase="path8_launches", path="hierarchy", launches=counts)
+    return counts, out
+
+
+def cuda_server(cfg, data):
+    from repro_torch.fl import FLServer, MLPTask
+
+    return FLServer(cfg, MLPTask(), data, device="cuda")
+
+
+def phase_cpu_agreement_hierarchy(torch):
+    """One hierarchical FedRank round (``hierarchical``, 50 devices) and one
+    krum round (``byzantine-signflip``) on the CPU and on the card from the
+    same seeds: the same probe sets, cohorts and adversaries, params within
+    1e-4."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+
+    data = small_data(4000, 50)
+    for label, kw, name in (
+            ("hierarchical", dict(scenario="hierarchical"), "fedrank"),
+            ("krum", dict(scenario="byzantine-signflip", aggregator="krum",
+                          agg_f=1), "fedavg")):
+        results, params = {}, {}
+        for dev in ("cpu", "cuda"):
+            srv = FLServer(FLConfig(n_devices=50, k_select=6, rounds=1, l_ep=2,
+                                    seed=3, **kw), MLPTask(), data, device=dev)
+            pol = build_policy(name, k=6, seed=0, device=dev) if name == "fedrank" \
+                else build_policy(name)
+            results[dev] = srv.run_round(pol)
+            params[dev] = {k: v.cpu() for k, v in srv.global_params.items()}
+        a, b = results["cpu"], results["cuda"]
+        require(result_key(a) == result_key(b), (label, result_key(a), result_key(b)))
+        err = params_diff(params["cpu"], params["cuda"])
+        require(err <= CPU_CARD_TOL, (label, err))
+        emit(phase="cpu_vs_card", path=label, cohort=b.selected.tolist(),
+             adversaries=b.adversaries.tolist(), tier_staleness=b.tier_staleness,
+             max_param_err=err, tolerance=CPU_CARD_TOL)
+
+
+# ---------------------------------------------------------------------------
 # flash_attention and LM serving (path 6)
 # ---------------------------------------------------------------------------
 
@@ -2436,7 +2754,8 @@ def spill_bytes(log):
 
 STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attention",
          "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
-         "path3_baselines", "path4_trace", "path5_async", "path6_lm", "path7_ssm")
+         "path3_baselines", "path4_trace", "path5_async", "vmapped",
+         "path8_hierarchy", "path6_lm", "path7_ssm")
 
 
 def run_phases(torch, card, only=()):
@@ -2525,13 +2844,14 @@ def run_phases(torch, card, only=()):
             phase_cpu_agreement_policies(torch, small_data(4000, 50))
             phase_cpu_agreement_il(torch)
             phase_cpu_agreement_async(torch)
+            phase_cpu_agreement_hierarchy(torch)
             phase_cpu_agreement_lm(torch)
     if want("full_width"):
         with step("full_width"):
             phase_full_width_agreement(torch)
 
     # ---- 5-11: the paths, each with its own launch counts --------------
-    if any(want(name) for name in STEPS if name.startswith("path")):
+    if any(want(name) for name in STEPS if name.startswith("path") or name == "vmapped"):
         t0 = time.perf_counter()
         data = small_data(64_000, 1000)
         emit(phase="main_data", samples=64_000, clients=1000,
@@ -2555,6 +2875,12 @@ def run_phases(torch, card, only=()):
             async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
             phase_async_profile(torch, async_srv, async_policy)
             phase_async_oracle(torch, data)
+    if want("vmapped"):
+        with step("vmapped"):
+            phase_vmapped(torch, data)
+    if want("path8_hierarchy"):
+        with step("path8_hierarchy"):
+            hier_counts, hier_runs = phase_hierarchy_path(torch, data)
     if want("path6_lm"):
         with step("path6_lm"):
             lm_counts, lm_runs = phase_serving_path(torch)
@@ -2587,6 +2913,10 @@ def run_phases(torch, card, only=()):
              op_host_included_ms_n25=topk_host["main_select"]["op_ms"],
              device_kernels_per_op_call={k: r["device_kernels_per_op_call"]
                                          for k, r in topk_host.items()},
+             launches_by_path={"path8_hierarchy": hier_counts["select_topk"],
+                               **{f"path8:{k}": r["select_topk_launches_per_round"]
+                                  for k, r in hier_runs.items()
+                                  if "select_topk_launches_per_round" in r}},
              ms_by_shape={k: r["ms"] for k, r in timings.items()}),
         dict(kernel_entry("pairwise_rank", "src/repro_torch/csrc/pairwise_rank.cu",
                           "src/repro/kernels/pairwise_rank/kernel.py:61",

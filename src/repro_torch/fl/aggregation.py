@@ -1,26 +1,39 @@
-"""Server-side aggregation: the data-size-weighted FedAvg mean and the
-asynchronous engine's staleness-weighted buffer merge.
+"""Server-side aggregation: the data-size-weighted FedAvg mean, the
+Byzantine-robust reducers and the asynchronous engine's staleness-weighted
+buffer merge.
 
 :func:`fedavg` accumulates each leaf in fp32 in client order, as the
-reference does.  The asynchronous engine merges a *buffer* of updates that
-started from different global-model versions, so each update is also scaled
-by a staleness weight of its version lag (:func:`staleness_weight`,
-FedBuff/FedAsync-style) in :func:`buffered_aggregate`.
-:func:`weighted_delta_aggregate` is the FedOpt server step over the same mean.
-:func:`robust_aggregate` and :func:`buffered_aggregate` take
-``kind="mean"`` / ``robust="mean"`` only; the Byzantine-robust reducers come
-with the robustness slice.
+reference does.  The robust reducers defend the merge against the attacks
+in :mod:`repro_torch.fl.attacks`: :func:`trimmed_mean` (coordinate-wise
+trimmed weighted mean), :func:`coordinate_median` and :func:`krum` /
+:func:`multi_krum` (distance-score selection), dispatched by
+:func:`robust_aggregate` (``FLConfig.aggregator``); ``"mean"`` is exactly
+:func:`fedavg`.  They keep the reference's order semantics: ranks from a
+stable double argsort, the median of an even count the mean of the two
+middle values, Krum scores in fp64 with the first index on ties and a
+stable sort for Multi-Krum.  Everything runs on the params' device except
+the (m, m) Krum score table, which comes to the host for numpy's order
+rules.
+
+The asynchronous engine merges a *buffer* of updates that started from
+different global-model versions, so each update is also scaled by a
+staleness weight of its version lag (:func:`staleness_weight`,
+FedBuff/FedAsync-style) in :func:`buffered_aggregate`; an update that
+crossed several aggregation tiers carries the product of their weights
+(:func:`compose_staleness`).  :func:`weighted_delta_aggregate` is the FedOpt
+server step over the same mean.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
 
-AGGREGATORS = ("mean",)
+AGGREGATORS = ("mean", "trimmed_mean", "coordinate_median", "krum",
+               "multi_krum")
 
 STALENESS_KINDS = ("constant", "polynomial", "hinge")
 
@@ -39,14 +52,111 @@ def fedavg(client_params: Sequence[Params], weights: Sequence[float]) -> Params:
     return out
 
 
+def _stack(client_params: Sequence[Params], name: str) -> torch.Tensor:
+    """(m, ...) fp32 stack of one leaf over the clients."""
+    return torch.stack([p[name].float() for p in client_params])
+
+
+def trimmed_mean(client_params: Sequence[Params], weights: Sequence[float],
+                 trim: int = 1) -> Params:
+    """Coordinate-wise trimmed weighted mean (Yin et al., 2018): per
+    coordinate the ``trim`` largest and ``trim`` smallest client values are
+    dropped and the rest averaged with their renormalized data weights.
+    Ranks come from a stable double argsort, so equal values keep client
+    order.  ``trim=0`` is :func:`fedavg`."""
+    m = len(client_params)
+    if trim == 0:
+        return fedavg(client_params, weights)
+    if trim < 0 or 2 * trim >= m:
+        raise ValueError(f"trimmed_mean needs 0 <= 2*trim < n updates; "
+                         f"got trim={trim} with {m} updates")
+    w = np.asarray(weights, np.float64)
+    w = (w / w.sum()).astype(np.float32)
+    out = {}
+    for name, leaf in client_params[0].items():
+        stack = _stack(client_params, name)
+        ranks = torch.argsort(torch.argsort(stack, dim=0, stable=True),
+                              dim=0, stable=True)
+        keep = (ranks >= trim) & (ranks < m - trim)
+        wb = torch.as_tensor(w, device=stack.device).view((m,) + (1,) * (stack.dim() - 1))
+        kept_w = torch.where(keep, wb, torch.zeros((), device=stack.device))
+        out[name] = ((kept_w * stack).sum(dim=0) / kept_w.sum(dim=0)).to(leaf.dtype)
+    return out
+
+
+def coordinate_median(client_params: Sequence[Params]) -> Params:
+    """Coordinate-wise (unweighted) median of the client updates; an even
+    count gives the mean of the two middle values (``torch.median`` would
+    give the lower one).  Data weights are ignored on purpose: a weighted
+    median would let an adversary claiming a huge dataset drag it."""
+    m = len(client_params)
+    out = {}
+    for name, leaf in client_params[0].items():
+        srt = torch.sort(_stack(client_params, name), dim=0).values
+        mid = srt[m // 2] if m % 2 else (srt[m // 2 - 1] + srt[m // 2]) * 0.5
+        out[name] = mid.to(leaf.dtype)
+    return out
+
+
+def krum_scores(client_params: Sequence[Params], f: int = 1) -> np.ndarray:
+    """(m,) Krum scores (Blanchard et al., 2017): each update's summed
+    squared distance to its ``m - f - 2`` nearest peers (at least 1).  The
+    updates are flattened leaf by leaf in sorted-name order and the
+    distances accumulate in fp64 on the params' device; the (m, m) table
+    comes to the host for the sort."""
+    m = len(client_params)
+    names = sorted(client_params[0])
+    flat = torch.stack([torch.cat([p[n].double().reshape(-1) for n in names])
+                        for p in client_params])
+    sq = torch.stack([((flat - flat[i]) ** 2).sum(dim=1) for i in range(m)])
+    sq = sq.cpu().numpy()
+    np.fill_diagonal(sq, np.inf)
+    n_near = max(m - f - 2, 1)
+    return np.sort(sq, axis=1)[:, :n_near].sum(axis=1)
+
+
+def krum(client_params: Sequence[Params], f: int = 1) -> Params:
+    """The update with the lowest Krum score (lowest index on ties)."""
+    return client_params[int(np.argmin(krum_scores(client_params, f=f)))]
+
+
+def multi_krum(client_params: Sequence[Params], weights: Sequence[float],
+               f: int = 1, m_select: Optional[int] = None) -> Params:
+    """Multi-Krum: :func:`fedavg` of the ``m_select`` lowest-scoring updates
+    (default ``m - f``; stable order on equal scores) with their data
+    weights."""
+    m = len(client_params)
+    if m_select is None:
+        m_select = max(m - f, 1)
+    m_select = int(np.clip(m_select, 1, m))
+    keep = np.argsort(krum_scores(client_params, f=f), kind="stable")[:m_select]
+    w = np.asarray(weights, np.float64)
+    return fedavg([client_params[i] for i in keep], w[keep])
+
+
 def robust_aggregate(client_params: Sequence[Params],
-                     weights: Sequence[float], kind: str = "mean") -> Params:
-    """``"mean"`` is :func:`fedavg`; other kinds are not ported yet."""
+                     weights: Sequence[float], kind: str = "mean",
+                     trim: int = 1, f: int = 1,
+                     m_select: Optional[int] = None) -> Params:
+    """Dispatch an aggregation ``kind`` from :data:`AGGREGATORS`.
+    ``"mean"`` is exactly :func:`fedavg`; ``trim`` is clipped to
+    ``(m - 1) // 2`` and Krum's ``f`` to ``(m - 3) // 2``, so small buffers
+    degrade gracefully instead of raising."""
+    m = len(client_params)
     if kind == "mean":
         return fedavg(client_params, weights)
-    raise NotImplementedError(
-        f"aggregator {kind!r} comes with the robustness slice of the port; "
-        f"this package has {AGGREGATORS}")
+    if kind == "trimmed_mean":
+        return trimmed_mean(client_params, weights,
+                            trim=int(np.clip(trim, 0, max((m - 1) // 2, 0))))
+    if kind == "coordinate_median":
+        return coordinate_median(client_params)
+    f_eff = int(np.clip(f, 0, max((m - 3) // 2, 0)))
+    if kind == "krum":
+        return krum(client_params, f=f_eff)
+    if kind == "multi_krum":
+        return multi_krum(client_params, weights, f=f_eff, m_select=m_select)
+    raise ValueError(f"unknown aggregator {kind!r}; "
+                     f"expected one of {AGGREGATORS}")
 
 
 def staleness_weight(lag, kind: str = "constant", a: float = 0.5,
@@ -69,10 +179,27 @@ def staleness_weight(lag, kind: str = "constant", a: float = 0.5,
                      f"expected one of {STALENESS_KINDS}")
 
 
+def compose_staleness(lags_by_tier: Sequence, kind: str = "constant",
+                      a: float = 0.5, b: int = 4) -> np.ndarray:
+    """Effective staleness weight of an update that crossed several
+    aggregation tiers: the product of each tier's :func:`staleness_weight`
+    (e.g. ``[region_lags, root_lags]`` in a hierarchical topology; arrays
+    broadcast).  One tier is :func:`staleness_weight`; lag 0 weighs exactly
+    1 at every tier."""
+    out = None
+    for lags in lags_by_tier:
+        s = staleness_weight(np.asarray(lags), kind=kind, a=a, b=b)
+        out = s if out is None else out * s
+    if out is None:
+        raise ValueError("compose_staleness needs at least one tier of lags")
+    return out
+
+
 def buffered_aggregate(global_params: Params, client_params: Sequence[Params],
                        data_weights: Sequence[float], lags: Sequence[int],
                        kind: str = "constant", a: float = 0.5, b: int = 4,
-                       robust: str = "mean") -> Params:
+                       robust: str = "mean", trim: int = 1, f: int = 1,
+                       m_select: Optional[int] = None) -> Params:
     """Staleness-weighted merge of a buffer of async updates.
 
     Update i carries ``c_i = w_i * s(lag_i)``, ``w_i`` its normalized data
@@ -80,17 +207,27 @@ def buffered_aggregate(global_params: Params, client_params: Sequence[Params],
     ``(1 - sum(c)) * global + sum(c_i * p_i)``, accumulated leaf by leaf in
     fp32 in buffer order — the mass a stale update loses stays with the
     current global model.  ``kind="constant"`` is exactly :func:`fedavg` of
-    the buffer (the sync/async parity anchor).  ``robust`` other than
-    ``"mean"`` comes with the robustness slice.
+    the buffer (the sync/async parity anchor).
+
+    A ``robust`` kind other than ``"mean"`` reduces the buffer with
+    :func:`robust_aggregate` under the staleness-scaled weights
+    ``w_i * s(lag_i)`` and blends the result with the global model by the
+    retained mass ``shrink = sum(w_norm_i * s_i)``; under constant weights
+    it is the robust reduction itself.
     """
-    if robust != "mean":
-        raise NotImplementedError(
-            f"buffered aggregation with robust={robust!r} comes with the "
-            f"robustness slice of the port; this package has {AGGREGATORS}")
     s = staleness_weight(np.asarray(lags), kind=kind, a=a, b=b)
+    w = np.asarray(data_weights, np.float64)
+    if robust != "mean":
+        if kind == "constant":
+            return robust_aggregate(client_params, data_weights, kind=robust,
+                                    trim=trim, f=f, m_select=m_select)
+        shrink = float(((w / w.sum()) * s).sum())
+        reduced = robust_aggregate(client_params, w * s, kind=robust,
+                                   trim=trim, f=f, m_select=m_select)
+        return {name: (g.float() * (1.0 - shrink) + reduced[name].float() * shrink
+                       ).to(g.dtype) for name, g in global_params.items()}
     if kind == "constant":
         return fedavg(client_params, data_weights)
-    w = np.asarray(data_weights, np.float64)
     coef = (w / w.sum()) * s
     keep = float(1.0 - coef.sum())
     out = {}

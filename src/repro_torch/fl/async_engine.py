@@ -40,9 +40,15 @@ scenario and ``constant`` weighting, every wave is dispatched at one version,
 fully arrives and aggregates: the engine replays the synchronous engine's
 selection draws, per-client seeds and FedAvg merge.
 
+An attack (``FLServer.attack``) corrupts adversarial uploads at dispatch,
+relative to the model version the wave trained from, and the buffer merge
+takes ``FLConfig.aggregator``'s robust kind.  The hierarchical engine
+(:class:`repro_torch.fl.topology.HierarchicalAsyncEngine`) overrides
+``_dispatch``, ``_fill_need``, ``_fill_unit_of``, ``_ready`` and
+``_aggregate``.
+
 Not here, unlike the reference: the observability feeds (spans, metrics,
-structured log events) come with the observability slice, and attack
-injection with the robustness slice (the server refuses both).
+structured log events) come with the observability slice.
 """
 from __future__ import annotations
 
@@ -92,6 +98,7 @@ class AsyncJob:
     loss: float               # final local-epoch loss (revealed on upload)
     fail_at_s: float          # active seconds until mid-job dropout (inf)
     dispatched_at: float = 0.0  # absolute virtual time the wave fired
+    adversarial: bool = False  # upload corrupted by the attack at dispatch
 
     @property
     def end_s(self) -> float:
@@ -127,7 +134,7 @@ class _JobTable:
     _F64 = ("duration", "energy", "fail_at", "end_active", "done_active",
             "online_since", "dispatched_at")
     _I64 = ("cid", "version", "seq", "cycle")
-    _BOOL = ("is_upload", "active")
+    _BOOL = ("is_upload", "adversarial", "active")
 
     def __init__(self, capacity: int = 64):
         self.cap = capacity
@@ -154,7 +161,7 @@ class _JobTable:
 
     def add(self, *, cid: int, version: int, seq: int, cycle: int,
             duration: float, energy: float, fail_at: float, now: float,
-            payload) -> int:
+            payload, adversarial: bool = False) -> int:
         if not self._free:
             self._grow()
         s = self._free.pop()
@@ -170,6 +177,7 @@ class _JobTable:
         self.online_since[s] = now       # dispatch requires an online device
         self.dispatched_at[s] = now
         self.is_upload[s] = payload[0] is not None
+        self.adversarial[s] = adversarial
         self.active[s] = True
         self.payload[s] = payload
         self._n += 1
@@ -383,6 +391,18 @@ class AsyncRoundEngine:
                           params=None, loss=float(srv.last_loss[i]),
                           fail_at=np.inf)
 
+        # attack injection: adversarial uploads are corrupted at dispatch,
+        # relative to the version the wave trained from (self.cycle is the
+        # wave counter, the async analogue of the sync round index), from the
+        # attack's own RNG stream
+        adv = np.zeros(len(selected), bool)
+        if srv.attack is not None and len(selected):
+            adv = srv.attack.draw(cfg.n_devices, cfg.seed, self.cycle, selected)
+            for i in selected[adv]:
+                params[int(i)] = srv.attack.corrupt(
+                    params[int(i)], srv.global_params, cid=int(i),
+                    seed=cfg.seed, round_idx=self.cycle)
+
         # mid-job dropout (the scenario failure model's Bernoulli channel;
         # the deadline channel has no meaning without a round barrier)
         p_drop = srv.pool.failures.dropout
@@ -399,7 +419,7 @@ class AsyncRoundEngine:
             loss_arr = losses.get(i, np.zeros(0))
             loss = loss_arr[-1] if len(loss_arr) else float(srv.last_loss[i])
             self._add_job(i, duration=dur, energy=en, params=params[i],
-                          loss=loss, fail_at=fail_at)
+                          loss=loss, fail_at=fail_at, adversarial=bool(adv[j]))
         srv.telemetry.observe_selection(selected)   # = srv.selection_count
         self._last_observe = (ctx, probe_ids if plan.has_probe else None,
                               probe_states)
@@ -409,11 +429,11 @@ class AsyncRoundEngine:
         return len(selected) > 0 or len(probe_ids) > 0
 
     def _add_job(self, cid: int, *, duration: float, energy: float, params,
-                 loss, fail_at: float) -> None:
+                 loss, fail_at: float, adversarial: bool = False) -> None:
         self.jobs.add(cid=cid, version=self.version, seq=self._seq,
                       cycle=self.cycle, duration=max(duration, _EPS),
                       energy=energy, fail_at=fail_at, now=self.now,
-                      payload=(params, loss))
+                      payload=(params, loss), adversarial=adversarial)
         self._busy[cid] = True
         if params is not None:
             self._upload_slots += 1
@@ -461,7 +481,8 @@ class AsyncRoundEngine:
                 duration_s=float(jt.duration[slot]),
                 energy_j=float(jt.energy[slot]), params=params,
                 loss=float(loss), fail_at_s=float(jt.fail_at[slot]),
-                dispatched_at=float(jt.dispatched_at[slot])))
+                dispatched_at=float(jt.dispatched_at[slot]),
+                adversarial=bool(jt.adversarial[slot])))
             jt.free(slot)
         if drop_cids:
             srv.telemetry.observe_dropouts(np.asarray(drop_cids, np.int64))
@@ -504,6 +525,17 @@ class AsyncRoundEngine:
             self.jobs.apply_mask(self._mask, self.now)
         return True
 
+    def _fill_need(self) -> np.ndarray:
+        """Per merge unit, the completions left before its threshold fills
+        (here one unit, the buffer); the batched window stops at the
+        completion that fills a unit, since its merge changes the version
+        and dispatch eligibility."""
+        return np.asarray([self.buffer_size - len(self.buffer)])
+
+    def _fill_unit_of(self, cids: np.ndarray) -> np.ndarray:
+        """Merge-unit index of each completing device (here unit 0)."""
+        return np.zeros(len(cids), np.int64)
+
     def _step_batched(self) -> bool:
         """Advance one event WINDOW: every job event before the next
         interesting one — a dropout or probe exit (frees a device or slot), a
@@ -526,8 +558,8 @@ class AsyncRoundEngine:
             slots, times = slots[:ncap], times[:ncap]
 
         groups = event_groups(times)
-        need = self.buffer_size - len(self.buffer)
-        filled = 0
+        need = self._fill_need()
+        filled = np.zeros_like(need)
         stop_g = len(groups) - 1
         interesting = False            # did a job event end the window?
         for gi, (i, j) in enumerate(groups):
@@ -537,8 +569,8 @@ class AsyncRoundEngine:
             if bool((is_drop | is_probe).any()):
                 stop_g, interesting = gi, True
                 break
-            filled += j - i
-            if filled >= need:
+            np.add.at(filled, self._fill_unit_of(jt.cid[g]), 1)
+            if bool((filled >= need).any()):
                 stop_g, interesting = gi, True
                 break
 
@@ -573,6 +605,8 @@ class AsyncRoundEngine:
     # aggregation
     # ------------------------------------------------------------------
     def _ready(self) -> bool:
+        """Whether a merge can fire now (the hierarchical engine folds full
+        region buffers and gates on the root buffer)."""
         return len(self.buffer) >= self.buffer_size
 
     def _aggregate(self):
@@ -589,7 +623,8 @@ class AsyncRoundEngine:
         srv.global_params = buffered_aggregate(
             srv.global_params, [j.params for j in take], weights, lags,
             kind=cfg.staleness, a=cfg.staleness_a, b=cfg.staleness_b,
-            robust=cfg.aggregator)
+            robust=cfg.aggregator, trim=cfg.agg_trim, f=cfg.agg_f,
+            m_select=cfg.agg_m or None)
         self.version += 1
         for j in take:                   # merged: devices may work again
             self._busy[j.cid] = False
@@ -610,6 +645,8 @@ class AsyncRoundEngine:
             r_t=r_t, r_e=r_e, d_acc=d_acc, reward=reward,
             cum_time=srv._cum_time, cum_energy=srv._cum_energy,
             failed=np.asarray(sorted(self._failed_since_agg), dtype=np.int64),
+            adversaries=np.asarray(sorted(j.cid for j in take if j.adversarial),
+                                   dtype=np.int64),
             n_available=int(self._mask.sum()),
             mean_staleness=float(lags.mean()), max_staleness=int(lags.max()),
             n_pending=len(self.jobs),

@@ -5,10 +5,15 @@ reference's single padding rule, kept here so both packages batch a shard the
 same way), and each epoch walks a host permutation drawn from
 ``np.random.default_rng(seed)`` exactly as the reference does.  The gather by
 that permutation and every SGD step run on the params' device.
+
+:func:`make_parallel_local_train` is the cohort-batched path: K clients'
+local training as one ``torch.func.vmap`` of ``grad_and_value`` over the
+client axis, the shuffle orders fed in as gather indices, so it replays
+:func:`local_train` client by client.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -110,3 +115,75 @@ def probing_epoch(task, params: Params, x: ArrayLike, y: ArrayLike, *,
     params, losses = local_train(task, params, x, y, epochs=1, lr=lr,
                                  batch_size=batch_size, prox_mu=prox_mu, seed=seed)
     return params, float(losses[0])
+
+
+# ---------------------------------------------------------------------------
+# Cohort-batched client training (vmapped over the client axis)
+# ---------------------------------------------------------------------------
+
+
+def make_parallel_local_train(task, *, batch_size: int, n_batches: int,
+                              epochs: int, prox_mu: float = 0.0,
+                              stacked_params: bool = False) -> Callable:
+    """Returns f(init_params, xs (K, cap, ...), ys, masks, lr[, perms])
+    -> (stacked client params (K, ...), per-epoch mean losses (K, epochs)).
+
+    Each SGD step is one ``torch.func.vmap`` of ``grad_and_value`` of
+    ``task.loss`` over the client axis; the epoch and batch loops are Python
+    loops on the host.
+
+    * ``stacked_params=True`` takes a leading client axis on every leaf of
+      ``init_params`` (each client resumes from its own params, e.g. the
+      probe stage's output); otherwise the one dict is broadcast (an
+      ``expand``, no copy).  The FedProx term anchors to each client's own
+      init, as :func:`local_train` does.
+    * ``perms`` (K, epochs, n_batches*batch_size) integer gather indices
+      give each client's per-epoch shuffle order, so the caller can replay
+      :func:`local_train`'s host shuffles exactly; when omitted, every epoch
+      walks the shards in storage order.
+    * ``losses[:, 0]`` is the probe loss FedRank reports.
+    """
+    take = n_batches * batch_size
+
+    def loss_fn(p, p_init, xb, yb, mb):
+        loss = task.loss(p, {"x": xb, "y": yb, "mask": mb})
+        if prox_mu > 0.0:
+            sq = sum(torch.sum(torch.square(p[k].float() - p_init[k].float()))
+                     for k in p)
+            loss = loss + 0.5 * prox_mu * sq
+        return loss
+
+    step = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+
+    def parallel(p_init: Params, xs: torch.Tensor, ys: torch.Tensor,
+                 masks: torch.Tensor, lr: float,
+                 perms: Optional[torch.Tensor] = None
+                 ) -> Tuple[Params, torch.Tensor]:
+        k = xs.shape[0]
+        if not stacked_params:
+            p_init = {n: a.unsqueeze(0).expand((k,) + tuple(a.shape))
+                      for n, a in p_init.items()}
+        if perms is None:
+            perms = torch.arange(take, device=xs.device).expand(k, epochs, take)
+        params = p_init
+        ep_losses = []
+        for e in range(epochs):
+            pe = perms[:, e].long()
+            xe = torch.take_along_dim(
+                xs, pe.view((k, take) + (1,) * (xs.dim() - 2)), dim=1)
+            ye = torch.take_along_dim(ys, pe.view((k, take) + (1,) * (ys.dim() - 2)),
+                                      dim=1)
+            me = torch.take_along_dim(masks, pe, dim=1)
+            losses = []
+            for b in range(n_batches):
+                sl = slice(b * batch_size, (b + 1) * batch_size)
+                grads, loss = step(params, p_init, xe[:, sl], ye[:, sl], me[:, sl])
+                params = {n: (params[n].float() - lr * grads[n].float()
+                              ).to(params[n].dtype) for n in params}
+                losses.append(loss)
+            ep_losses.append(torch.stack(losses, dim=1).mean(dim=1))
+        if not ep_losses:
+            return params, xs.new_zeros((k, 0), dtype=torch.float32)
+        return params, torch.stack(ep_losses, dim=1)
+
+    return parallel

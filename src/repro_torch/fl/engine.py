@@ -7,23 +7,33 @@
   baselines get an empty probe stage and a full ``l_ep``-epoch completion.
 * :class:`SequentialExecutor` — the reference semantics: one
   :func:`repro_torch.fl.client.local_train` call per client, in order.
-
+* :class:`VmappedExecutor` — the cohort-batched path: clients grouped into
+  (padded size, epochs) buckets, each bucket one
+  :func:`repro_torch.fl.client.make_parallel_local_train` call over the
+  client axis, with the same per-client shuffle orders, so its results
+  match :class:`SequentialExecutor`'s within fp32 rounding.
 * :class:`AsyncDispatchExecutor` — the ``"async"`` registry alias: it
   selects the asynchronous engine and delegates each wave's client work to
   its ``inner`` executor.
 
-Executors are looked up by name (``FLConfig.executor``).  This package has
-``"sequential"`` and ``"async"``; the cohort-batched ``"vmapped"`` executor
-comes in a later slice.
+Executors are looked up by name (``FLConfig.executor``): ``"sequential"``,
+``"vmapped"`` and ``"async"``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.fl.client import local_train
+from repro_torch.fl.client import (
+    _bucket_geometry,
+    _pad_bucket,
+    local_train,
+    make_parallel_local_train,
+)
 
 Params = Any
 
@@ -127,6 +137,95 @@ class SequentialExecutor:
         return out
 
 
+@functools.lru_cache(maxsize=256)
+def _bucket_step(task, batch_size: int, n_batches: int, epochs: int,
+                 prox_mu: float, stacked_params: bool):
+    """The whole-bucket step, cached per (task, geometry, epochs)."""
+    return make_parallel_local_train(task, batch_size=batch_size,
+                                     n_batches=n_batches, epochs=epochs,
+                                     prox_mu=prox_mu,
+                                     stacked_params=stacked_params)
+
+
+class VmappedExecutor:
+    """The cohort's local training as one batched step per bucket.
+
+    Clients are grouped into (padded size, epochs) buckets; each bucket is
+    one vmapped call over the client axis on the global params' device, with
+    the host shuffle orders (``np.random.default_rng(req.seed)``, drawn as
+    :func:`~repro_torch.fl.client.local_train` draws them) uploaded once as
+    gather indices.  A request with ``epochs <= 0`` passes its init through.
+    Each client's params are its slice of the stacked result (a view, on the
+    device); the losses come to the host in one copy per bucket.
+
+    The reference's ``mesh`` (sharding the client axis over a TPU mesh) is
+    not here: only ``mesh=None`` is accepted.
+    """
+
+    name = "vmapped"
+
+    def __init__(self, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "VmappedExecutor(mesh=...) is not ported: sharding the client "
+                "axis over a device mesh comes with the TPU-mesh tooling slice "
+                "of the port; use mesh=None")
+
+    def run(self, task, global_params, requests, *, lr, batch_size, prox_mu
+            ) -> ExecutionResult:
+        out = ExecutionResult()
+        buckets: Dict[tuple, List[ClientRequest]] = {}
+        for req in requests:
+            if req.epochs <= 0:
+                out.params[req.client_id] = (req.init_params
+                                             if req.init_params is not None
+                                             else global_params)
+                out.losses[req.client_id] = np.zeros(0)
+                continue
+            cap, _, _ = _bucket_geometry(len(req.y), batch_size)
+            buckets.setdefault((cap, req.epochs), []).append(req)
+        for (cap, epochs), reqs in buckets.items():
+            self._run_bucket(task, global_params, reqs, cap, epochs, out,
+                             lr=lr, batch_size=batch_size, prox_mu=prox_mu)
+        return out
+
+    def _run_bucket(self, task, global_params, reqs, cap, epochs, out, *,
+                    lr, batch_size, prox_mu):
+        _, bs, nb = _bucket_geometry(cap, batch_size)
+        take = nb * bs
+        device = next(iter(global_params.values())).device
+        xs, ys, masks, perms = [], [], [], []
+        for req in reqs:
+            xpad, ypad, mask = _pad_bucket(torch.as_tensor(req.x, device=device),
+                                           torch.as_tensor(req.y, device=device))
+            xs.append(xpad)
+            ys.append(ypad)
+            masks.append(mask)
+            rng = np.random.default_rng(req.seed)
+            perms.append(np.stack([rng.permutation(cap)[:take]
+                                   for _ in range(epochs)]))
+        stacked_init = any(req.init_params is not None for req in reqs)
+        if stacked_init:
+            inits = [req.init_params if req.init_params is not None
+                     else global_params for req in reqs]
+            p0 = {name: torch.stack([p[name] for p in inits])
+                  for name in global_params}
+        else:
+            # shared start (probe stage, plain rounds): the one dict is
+            # broadcast inside the step, no K-fold copy
+            p0 = global_params
+        step = _bucket_step(task, bs, nb, epochs, float(prox_mu), stacked_init)
+        stacked, ep_losses = step(p0, torch.stack(xs), torch.stack(ys),
+                                  torch.stack(masks), float(lr),
+                                  torch.as_tensor(np.stack(perms), device=device))
+        # one device->host copy of the bucket's losses; each client's params
+        # are a view of the stacked result (slicing launches nothing)
+        ep_losses = ep_losses.double().cpu().numpy()
+        for j, req in enumerate(reqs):
+            out.params[req.client_id] = {name: a[j] for name, a in stacked.items()}
+            out.losses[req.client_id] = ep_losses[j]
+
+
 def executor_label(ex) -> str:
     """The executor doing the work, wrappers unwrapped: its registry ``name``
     with any ``inner`` delegate in brackets, e.g. ``"async[sequential]"``
@@ -144,20 +243,18 @@ class AsyncDispatchExecutor:
     ``FLConfig(executor="async")`` is shorthand for ``FLConfig(mode="async")``:
     the server spots this executor's name and drives rounds through
     :class:`repro_torch.fl.async_engine.AsyncRoundEngine`.  Each dispatch
-    wave's client work goes to ``inner`` (default and only choice here:
-    :class:`SequentialExecutor`).
+    wave's client work goes to ``inner`` (default
+    :class:`SequentialExecutor`; ``inner="vmapped"`` runs each wave as one
+    batched step per bucket).
     """
 
     name = "async"
 
     def __init__(self, inner=None, **kw):
-        if isinstance(inner, str) and inner != "sequential":
-            raise NotImplementedError(
-                f"AsyncDispatchExecutor(inner={inner!r}) is not ported yet: "
-                "the vmapped executor comes in a later slice of the port; "
-                "this package has inner='sequential'")
-        self.inner = (make_executor("sequential", **kw)
-                      if inner is None or isinstance(inner, str) else inner)
+        if inner is None or isinstance(inner, str):
+            self.inner = make_executor(inner or "sequential", **kw)
+        else:
+            self.inner = inner
 
     def run(self, task, global_params, requests, *, lr, batch_size, prox_mu
             ) -> ExecutionResult:
@@ -190,4 +287,5 @@ def available_executors() -> List[str]:
 
 
 register_executor("sequential", SequentialExecutor)
+register_executor("vmapped", VmappedExecutor)
 register_executor("async", AsyncDispatchExecutor)

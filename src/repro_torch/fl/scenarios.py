@@ -17,10 +17,18 @@ Availability models tell the asynchronous engine when their mask can next
 change (``next_transition``) and whether rounds can be skipped without
 stepping (``stateless_replay``), as in the reference.
 
-This package registers the scenarios without regions or attacks:
-``uniform``, ``cellular-tail``, ``nightly-chargers``, ``flash-crowd``,
-``high-churn``, ``trace-livelab``, ``trace-synthetic-week`` and
-``stragglers``.  Any other name raises ``KeyError``.
+``ScenarioSpec.regions`` adds a hierarchical axis: the fleet is apportioned
+over named :class:`RegionSpec` leaves (contiguous label blocks,
+:func:`split_by_weight`), each optionally overriding the tier mix, load,
+availability or trace of its slice (:class:`RegionalLoad`,
+:class:`RegionalAvailability`); :class:`RegionOutage` darkens whole regions
+at once.  ``ScenarioSpec.attack`` carries an
+:class:`~repro_torch.fl.attacks.AttackModel`.
+
+Registered: ``uniform``, ``cellular-tail``, ``nightly-chargers``,
+``flash-crowd``, ``high-churn``, ``trace-livelab``, ``trace-synthetic-week``,
+``hierarchical``, ``regional-outage``, ``stragglers``,
+``byzantine-signflip``, ``byzantine-scaled`` and ``label-drift``.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch import DeviceLike
+from repro_torch.fl import attacks as _atk
 from repro_torch.fl.traces import SyntheticTraceSpec, TraceSpec, sample_trace_path
 
 
@@ -210,6 +219,110 @@ class DiurnalAvailability:
         return None
 
 
+@dataclass(frozen=True)
+class RegionOutage:
+    """Correlated regional outages over any per-device availability model.
+
+    Wraps ``inner`` and overlays region-wide offline windows: each round
+    every region that is up goes dark with probability ``outage_prob`` for
+    ``outage_len`` rounds (the whole region at once).  Region extents are
+    bound at :meth:`ScenarioSpec.build` (:meth:`bind_regions`; label blocks
+    are contiguous in region order).  The inner model keeps stepping through
+    an outage, so a region comes back where its devices' own dynamics are.
+    """
+
+    inner: Any = field(default_factory=AlwaysAvailable)
+    outage_prob: float = 0.05
+    outage_len: int = 3
+    region_sizes: Tuple[int, ...] = ()     # bound by ScenarioSpec.build
+
+    def bind_regions(self, sizes) -> "RegionOutage":
+        return dataclasses.replace(self, region_sizes=tuple(int(s) for s in sizes))
+
+    def _sizes(self, n: int) -> Tuple[int, ...]:
+        # unbound (no regions declared): the whole fleet is one region
+        return self.region_sizes if self.region_sizes else (n,)
+
+    def init_state(self, n: int, rng: np.random.Generator):
+        inner_state = self.inner.init_state(n, rng)
+        remaining = np.zeros(len(self._sizes(n)), dtype=np.int64)
+        return (inner_state, remaining, n)
+
+    def step(self, state, rng: np.random.Generator, round_idx: int):
+        inner_state, remaining, n = state
+        inner_state = self.inner.step(inner_state, rng, round_idx)
+        remaining = np.maximum(remaining - 1, 0)
+        start = rng.random(len(remaining)) < self.outage_prob
+        remaining = np.where((remaining == 0) & start, self.outage_len, remaining)
+        return (inner_state, remaining, n)
+
+    def mask(self, state, round_idx: int) -> np.ndarray:
+        inner_state, remaining, n = state
+        m = np.asarray(self.inner.mask(inner_state, round_idx), dtype=bool).copy()
+        m[np.repeat(remaining > 0, self._sizes(n))] = False
+        return m
+
+    def next_transition(self, state, round_idx: int) -> Optional[int]:
+        # outage starts are Bernoulli per round: the mask may change every step
+        return round_idx + 1
+
+
+@dataclass(frozen=True)
+class RegionalLoad:
+    """Composite load model: each region runs its own sub-model over its
+    contiguous device slice (states initialized and stepped in region order
+    from the pool's one RNG)."""
+
+    models: Tuple[Any, ...]
+    sizes: Tuple[int, ...]
+
+    def init_state(self, n: int, rng: np.random.Generator):
+        if n != sum(self.sizes):
+            raise ValueError(f"regional sizes {self.sizes} sum to "
+                             f"{sum(self.sizes)}, fleet has {n}")
+        return tuple(m.init_state(s, rng) for m, s in zip(self.models, self.sizes))
+
+    def step(self, state, rng: np.random.Generator, round_idx: int):
+        return tuple(m.step(st, rng, round_idx)
+                     for m, st in zip(self.models, state))
+
+    def loads(self, state, round_idx: int) -> np.ndarray:
+        return np.concatenate([np.asarray(m.loads(st, round_idx))
+                               for m, st in zip(self.models, state)])
+
+
+@dataclass(frozen=True)
+class RegionalAvailability:
+    """Composite availability model: per-region sub-models over contiguous
+    slices; ``next_transition`` is the earliest of the regions'."""
+
+    models: Tuple[Any, ...]
+    sizes: Tuple[int, ...]
+
+    def init_state(self, n: int, rng: np.random.Generator):
+        if n != sum(self.sizes):
+            raise ValueError(f"regional sizes {self.sizes} sum to "
+                             f"{sum(self.sizes)}, fleet has {n}")
+        return tuple(m.init_state(s, rng) for m, s in zip(self.models, self.sizes))
+
+    def step(self, state, rng: np.random.Generator, round_idx: int):
+        return tuple(m.step(st, rng, round_idx)
+                     for m, st in zip(self.models, state))
+
+    def mask(self, state, round_idx: int) -> np.ndarray:
+        return np.concatenate([np.asarray(m.mask(st, round_idx), dtype=bool)
+                               for m, st in zip(self.models, state)])
+
+    def next_transition(self, state, round_idx: int) -> Optional[int]:
+        nxt = None
+        for m, st in zip(self.models, state):
+            fn = getattr(m, "next_transition", None)
+            t = fn(st, round_idx) if fn is not None else round_idx + 1
+            if t is not None:
+                nxt = t if nxt is None else min(nxt, t)
+        return nxt
+
+
 # ---------------------------------------------------------------------------
 # Failure model (applies to *selected* devices mid-round)
 # ---------------------------------------------------------------------------
@@ -273,18 +386,57 @@ class FailureModel:
 
 
 @dataclass(frozen=True)
+class RegionSpec:
+    """One leaf region of a hierarchical fleet (``ScenarioSpec.regions``).
+
+    ``weight`` apportions the fleet (:func:`split_by_weight`); any of
+    ``tier_probs`` / ``load`` / ``availability`` / ``trace`` overrides the
+    spec-level default for this region's slice; ``budget`` is an optional
+    per-region selection budget ``k_r`` (:mod:`repro_torch.fl.topology`)."""
+
+    name: str
+    weight: float = 1.0
+    tier_probs: Optional[Tuple[float, ...]] = None
+    load: Any = None
+    availability: Any = None
+    trace: Optional[TraceSpec] = None
+    budget: Optional[int] = None
+
+
+def split_by_weight(n: int, weights) -> List[int]:
+    """Largest-remainder apportionment of ``n`` devices over regions
+    (deterministic; every region gets at least 1 device)."""
+    w = np.asarray(weights, dtype=np.float64)
+    if len(w) > n:
+        raise ValueError(f"{len(w)} regions need at least {len(w)} devices, "
+                         f"got {n}")
+    quota = w / w.sum() * (n - len(w))      # reserve 1 per region up front
+    counts = np.floor(quota).astype(np.int64) + 1
+    rem = n - int(counts.sum())
+    # remainders to the largest fractional parts (ties: region order)
+    order = np.argsort(-(quota - np.floor(quota)), kind="stable")
+    counts[order[:rem]] += 1
+    return [int(c) for c in counts]
+
+
+@dataclass(frozen=True)
 class ScenarioSpec:
     """A fleet environment: tier mix x load dynamics x availability x
-    failures.  Build the runtime fleet with :meth:`build`."""
+    failures, optionally regions and an attack.  Build the runtime fleet
+    with :meth:`build`."""
 
     name: str
     description: str = ""
     tier_probs: Tuple[float, ...] = (0.25, 0.5, 0.25)
+    tiers: Optional[Tuple[Tuple[float, float, float, float], ...]] = None
     load: Any = field(default_factory=MarkovLoad)
     availability: Any = field(default_factory=AlwaysAvailable)
     failures: FailureModel = field(default_factory=FailureModel)
     trace: Optional[TraceSpec] = None     # replaces load+availability with a
     #                                       coherent replayed device trace
+    regions: Optional[Tuple[RegionSpec, ...]] = None
+    attack: Any = None                    # AttackModel corrupting adversarial
+    #                                       uploads; None = every client honest
 
     def build(self, n_devices: int, seed: int = 0, device: DeviceLike = None):
         """The runtime fleet.  ``device`` is where a trace's segment lookups
@@ -298,9 +450,44 @@ class ScenarioSpec:
             # bootstrapped fleet (deterministic in (spec, n_devices, seed))
             load, availability = self.trace.resolve(n_devices, seed=seed,
                                                     device=device)
-        return DevicePool(n_devices, seed=seed, tier_probs=list(self.tier_probs),
-                          load_model=load, availability=availability,
-                          failures=self.failures)
+        pool_kw = {}
+        tier_probs = list(self.tier_probs)
+        counts = [n_devices]
+        if self.regions:
+            counts = split_by_weight(n_devices, [r.weight for r in self.regions])
+            pool_kw["regions"] = np.repeat(np.arange(len(counts)), counts)
+            pool_kw["region_names"] = [r.name for r in self.regions]
+            if any(r.tier_probs is not None for r in self.regions):
+                tier_probs = [list(r.tier_probs if r.tier_probs is not None
+                                   else self.tier_probs) for r in self.regions]
+            models = [self._region_models(r, i, counts[i], seed, device)
+                      for i, r in enumerate(self.regions)]
+            if any(r.load is not None or r.trace is not None for r in self.regions):
+                load = RegionalLoad(tuple(m[0] for m in models), tuple(counts))
+            if any(r.availability is not None or r.trace is not None
+                   for r in self.regions):
+                availability = RegionalAvailability(tuple(m[1] for m in models),
+                                                    tuple(counts))
+        if hasattr(availability, "bind_regions"):
+            # region-correlated models (RegionOutage) learn the label blocks'
+            # extents; an unregioned spec is one region
+            availability = availability.bind_regions(counts)
+        return DevicePool(n_devices, seed=seed, tier_probs=tier_probs,
+                          tiers=self.tiers, load_model=load,
+                          availability=availability, failures=self.failures,
+                          attack=self.attack, **pool_kw)
+
+    def _region_models(self, region: RegionSpec, idx: int, count: int,
+                       seed: int, device: DeviceLike):
+        """(load, availability) for one region slice; a region-level trace
+        replaces both with a replay resolved per region (its own resample
+        seed per region index)."""
+        if region.trace is not None:
+            return region.trace.resolve(count, seed=seed + 7919 * (idx + 1),
+                                        device=device)
+        return (region.load if region.load is not None else self.load,
+                region.availability if region.availability is not None
+                else self.availability)
 
 
 _SCENARIOS: Dict[str, ScenarioSpec] = {}
@@ -404,10 +591,76 @@ register_scenario(ScenarioSpec(
 ))
 
 register_scenario(ScenarioSpec(
+    name="hierarchical",
+    description="3-region edge hierarchy: a flagship-heavy metro core with "
+                "mild churn, a balanced suburban ring on nightly charging "
+                "windows, and a low-end rural edge with aggressive churn — "
+                "the per-region tier/availability contrast hierarchical "
+                "selection budgets (repro_torch.fl.topology) are about.",
+    regions=(
+        RegionSpec(name="metro", weight=0.3, tier_probs=(0.5, 0.4, 0.1),
+                   availability=ChurnAvailability(p_drop=0.05, p_join=0.6,
+                                                  init_online=0.95)),
+        RegionSpec(name="suburban", weight=0.4,
+                   availability=DiurnalAvailability(duty=0.5)),
+        RegionSpec(name="rural", weight=0.3, tier_probs=(0.05, 0.25, 0.7),
+                   availability=ChurnAvailability(p_drop=0.3, p_join=0.3,
+                                                  init_online=0.7)),
+    ),
+    failures=FailureModel(dropout=0.05),
+))
+
+register_scenario(ScenarioSpec(
+    name="regional-outage",
+    description="Correlated regional failures: three equal regions of "
+                "churning devices, each going entirely dark for a few "
+                "rounds at a time (RegionOutage over ChurnAvailability) — "
+                "a backbone cut no per-device churn model can express.",
+    regions=(
+        RegionSpec(name="east", weight=1.0),
+        RegionSpec(name="central", weight=1.0),
+        RegionSpec(name="west", weight=1.0),
+    ),
+    availability=RegionOutage(
+        inner=ChurnAvailability(p_drop=0.1, p_join=0.5, init_online=0.9),
+        outage_prob=0.08, outage_len=3),
+    failures=FailureModel(dropout=0.05),
+))
+
+register_scenario(ScenarioSpec(
     name="stragglers",
     description="Deadline-dominated: low-end-heavy mix under a tight "
                 "1.5x-median deadline — slow devices burn energy up to the "
                 "timeout and upload nothing.",
     tier_probs=(0.15, 0.35, 0.50),
     failures=FailureModel(deadline_factor=1.5),
+))
+
+register_scenario(ScenarioSpec(
+    name="byzantine-signflip",
+    description="30% of the fleet is Byzantine: compromised devices upload "
+                "boosted sign-flipped updates (g - 4*(p - g)), enough to "
+                "stall or reverse a plain mean — the canonical stress test "
+                "for trimmed-mean/Krum aggregation (FLConfig.aggregator).",
+    attack=_atk.SignFlip(fraction=0.3, scale=4.0),
+))
+
+register_scenario(ScenarioSpec(
+    name="byzantine-scaled",
+    description="20% model-replacement boosters: adversaries upload their "
+                "honest delta scaled 10x (backdoor-style amplification) "
+                "under mild churn — magnitude poisoning that norm-blind "
+                "averaging absorbs and coordinate-wise defenses clip.",
+    availability=ChurnAvailability(p_drop=0.1, p_join=0.5, init_online=0.9),
+    attack=_atk.ScaledUpdate(fraction=0.2, factor=10.0),
+))
+
+register_scenario(ScenarioSpec(
+    name="label-drift",
+    description="Drifting label skew: 30% of devices behave as if their "
+                "label distribution rotates one class every 2 rounds — "
+                "their classifier-head updates are rolled along the label "
+                "axis on the round clock, a moving pathology no static "
+                "robust mean can memorize.",
+    attack=_atk.LabelSkewDrift(fraction=0.3, period=2),
 ))

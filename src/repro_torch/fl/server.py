@@ -17,6 +17,10 @@ Model weights, client data and every training step live on the server's
 scenario RNG streams and the virtual clock stay numpy on the host, so
 cohorts, failures and the clock follow the reference exactly.
 
+Client work goes to a pluggable executor (``FLConfig.executor``):
+``"sequential"`` trains client by client, ``"vmapped"`` each cohort bucket
+as one batched step (:mod:`repro_torch.fl.engine`).
+
 Rounds come in two regimes (``FLConfig.mode``): ``"sync"`` runs the barrier
 loop above, ``"async"`` (or ``executor="async"``) hands the run to
 :class:`repro_torch.fl.async_engine.AsyncRoundEngine` through
@@ -25,9 +29,15 @@ with the absolute virtual clock as ``cum_time``.  A trace scenario (or
 ``FLConfig.trace_csv``) replays device timelines whose segment lookups run
 on the server's device.
 
-Not in this package yet, and refused with ``NotImplementedError``:
-hierarchical topologies and regions, attacks, run observability and robust
-aggregators.
+A regioned fleet (a scenario with regions, or ``FLConfig.regions``) or an
+explicit ``FLConfig.topology`` routes both regimes through the hierarchical
+drivers of :mod:`repro_torch.fl.topology`.  An attack (``FLConfig.attack``,
+else the scenario's) corrupts adversarial uploads after training and before
+aggregation, and ``FLConfig.aggregator`` picks the merge rule at every merge
+site (:mod:`repro_torch.fl.aggregation`).
+
+Not in this package yet, and refused with ``NotImplementedError``: run
+observability (``FLConfig.observe``).
 """
 from __future__ import annotations
 
@@ -52,9 +62,10 @@ from repro_torch.fl.engine import (
     executor_label,
     make_executor,
 )
-from repro_torch.fl.scenarios import build_scenario, get_scenario
+from repro_torch.fl.scenarios import build_scenario, get_scenario, split_by_weight
 from repro_torch.fl.traces import TraceSpec
 from repro_torch.fl.simulation import (
+    DevicePool,
     RoundSystemState,
     plan_round_energy,
     plan_round_latency,
@@ -86,7 +97,14 @@ class FLConfig:
     executor: str = "sequential"  # client-executor name (repro_torch.fl.engine)
     feature_set: str = "paper6"   # probe-state feature set on RoundContext
     #                               (repro_torch.core.features)
-    aggregator: str = "mean"      # merge rule; "mean" is fedavg
+    aggregator: str = "mean"      # merge rule (repro_torch.fl.aggregation):
+    #                               mean | trimmed_mean | coordinate_median
+    #                               | krum | multi_krum; "mean" is fedavg;
+    #                               applied at every merge site (sync round,
+    #                               async buffer, topology tiers)
+    agg_trim: int = 1             # trimmed_mean: values cut per side/coord
+    agg_f: int = 1                # krum/multi_krum: tolerated adversaries
+    agg_m: int = 0                # multi_krum: updates kept (0 => m - f)
     trace_csv: Optional[str] = None   # LiveLab-format trace CSV replayed as
     #                               the scenario's load+availability (swaps
     #                               the named scenario's TraceSpec source)
@@ -110,10 +128,24 @@ class FLConfig:
     #                               event windows per step) | "sequential"
     #                               (one event instant per step — the
     #                               parity oracle)
-    # --- refused until their slice is ported (NotImplementedError) ---
-    topology: Any = None          # hierarchical aggregation: hierarchy slice
-    regions: int = 0              # region split: hierarchy slice
-    attack: Any = None            # adversarial clients: robustness slice
+    topology: Any = None          # hierarchical aggregation topology
+    #                               (repro_torch.fl.topology): a registered
+    #                               name, an AggregationTopology, or None —
+    #                               None builds one when the fleet declares
+    #                               regions, else the run is flat
+    regions: int = 0              # split an unregioned fleet into this many
+    #                               equal contiguous regions
+    region_budgets: Any = None    # per-region selection budgets k_r: dict
+    #                               name->k or a sequence in region order
+    #                               (None => even split of k_select)
+    region_exec: str = "stacked"  # hierarchical rounds: "stacked" runs every
+    #                               region's cohort in ONE executor call per
+    #                               stage, "sequential" one call per region
+    #                               (identical results)
+    attack: Any = None            # AttackModel corrupting uploads after
+    #                               training, before aggregation (None =>
+    #                               the scenario's, if it declares one)
+    # --- refused until its slice is ported (NotImplementedError) ---
     observe: Any = None           # run records: observability slice
     seed: int = 0
 
@@ -121,20 +153,10 @@ class FLConfig:
 def _refuse_unported(cfg: FLConfig) -> None:
     if cfg.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {cfg.mode!r}; expected 'sync' or 'async'")
-    later = [
-        (cfg.topology is not None, "topology", "the hierarchy slice"),
-        (bool(cfg.regions), "regions", "the hierarchy slice"),
-        (cfg.attack is not None, "attack", "the robustness slice"),
-        (cfg.aggregator != "mean", f"aggregator={cfg.aggregator!r}",
-         "the robustness slice"),
-        (cfg.observe not in (None, False), "observe",
-         "the observability slice"),
-    ]
-    for unported, what, where in later:
-        if unported:
-            raise NotImplementedError(
-                f"FLConfig {what} is not ported to repro_torch yet; it comes "
-                f"with {where} (the JAX package repro has it)")
+    if cfg.observe not in (None, False):
+        raise NotImplementedError(
+            "FLConfig observe is not ported to repro_torch yet; it comes with "
+            "the observability slice (the JAX package repro has it)")
 
 
 @dataclass
@@ -155,6 +177,11 @@ class RoundContext:
     selection_count: np.ndarray = None  # (N,) times each device was selected
     telemetry: Optional[DeviceTelemetry] = None   # per-device runtime history
     feature_set: Any = None          # FeatureSet shaping probe_states
+    region: np.ndarray = None        # (N,) static region labels (flat fleet:
+    #                                  all zeros — repro_torch.fl.topology)
+    region_id: Optional[int] = None  # set when this context is one region's
+    #                                  slice of a hierarchical round
+    region_name: Optional[str] = None
     rng: np.random.Generator = field(repr=False, default=None)
 
     def available_ids(self) -> np.ndarray:
@@ -211,12 +238,20 @@ class RoundResult:
     #                             selected devices that dropped mid-round
     stragglers: np.ndarray = field(default_factory=_empty_ids)
     #                             selected devices that missed the deadline
+    adversaries: np.ndarray = field(default_factory=_empty_ids)
+    #                             selected devices that were adversarial this
+    #                             round (repro_torch.fl.attacks); empty
+    #                             without an attack
     n_available: int = -1         # fleet devices online this round
     # --- async-mode fields (one record per *aggregation*; the defaults keep
     #     synchronous records unchanged) ---
     mean_staleness: float = 0.0   # mean model-version lag of merged updates
     max_staleness: int = 0        # worst lag in the merged buffer
     n_pending: int = 0            # jobs still in flight at aggregation time
+    tier_staleness: Dict[str, float] = field(default_factory=dict)
+    #                             hierarchical runs: mean per-tier lag of the
+    #                             merged updates, keyed "region:<name>" /
+    #                             "root" (empty on flat runs)
     host_time_s: float = 0.0      # host wall-clock seconds for the record
     #                             (sync: the round; async: since the previous
     #                             aggregation), device work included (ends in
@@ -238,6 +273,7 @@ def paper_reward(d_acc: float, r_t: float, r_e: float, t_budget: float,
 
 class FLServer:
     def __init__(self, cfg: FLConfig, task, data: FederatedData,
+                 pool: Optional[DevicePool] = None,
                  executor: Optional[ClientExecutor] = None,
                  device: DeviceLike = None):
         _refuse_unported(cfg)
@@ -262,16 +298,38 @@ class FLServer:
                 dataclasses.replace(prior, csv=cfg.trace_csv, synthetic=None)
                 if prior is not None else TraceSpec(csv=cfg.trace_csv))
         # trace lookups run where the model does
-        self.pool = build_scenario(cfg.scenario, cfg.n_devices, seed=cfg.seed,
-                                   device=self.device, **scenario_kw)
+        self.pool = pool or build_scenario(cfg.scenario, cfg.n_devices,
+                                           seed=cfg.seed, device=self.device,
+                                           **scenario_kw)
         if cfg.failure_rate > 0:
             # extra Bernoulli dropout over the scenario's failure model
             self.pool.failures = dataclasses.replace(
                 self.pool.failures,
                 dropout=max(self.pool.failures.dropout, cfg.failure_rate))
+        if cfg.regions and cfg.regions > 1:
+            if self.pool.n_regions > 1 and self.pool.n_regions != cfg.regions:
+                raise ValueError(
+                    f"FLConfig.regions={cfg.regions} conflicts with the "
+                    f"scenario's {self.pool.n_regions} declared regions")
+            if self.pool.n_regions == 1:
+                # carve an unregioned fleet into equal contiguous regions
+                counts = split_by_weight(cfg.n_devices, [1.0] * cfg.regions)
+                self.pool.region = np.repeat(np.arange(cfg.regions), counts)
+                self.pool.n_regions = cfg.regions
+                self.pool.region_names = [f"region{i}" for i in range(cfg.regions)]
+        # an explicit FLConfig.attack overrides the scenario's; attack draws
+        # come from their own RNG stream, so attack=None runs consume exactly
+        # the RNG of an unattacked run
+        self.attack = (cfg.attack if cfg.attack is not None
+                       else getattr(self.pool, "attack", None))
         self.rng = np.random.default_rng(cfg.seed + 17)
         self.feature_set = get_feature_set(cfg.feature_set)  # validates early
         self.telemetry = DeviceTelemetry(cfg.n_devices)
+        self.telemetry.set_regions(self.pool.region, self.pool.region_names)
+        from repro_torch.fl.topology import resolve_topology   # deferred:
+        #                                  topology imports the server's types
+
+        self.topology = resolve_topology(cfg, self.pool)
         self.global_params: Params = task.init(cfg.seed, device=self.device)
         # the whole train/test set lives on the device; a client's shard is
         # a device-side gather by its index list
@@ -348,7 +406,7 @@ class FLServer:
                        else available),
             selection_count=self.selection_count.copy(),
             telemetry=self.telemetry, feature_set=self.feature_set,
-            rng=self.rng)
+            region=self.pool.region, rng=self.rng)
 
     def _client_data(self, i: int):
         idx = self._client_idx[i]
@@ -370,6 +428,10 @@ class FLServer:
 
     # ------------------------------------------------------------------
     def run_round(self, policy: SelectionPolicy) -> RoundResult:
+        if self.topology is not None:
+            from repro_torch.fl.topology import run_topology_round
+
+            return run_topology_round(self, policy)
         cfg = self.cfg
         t_host0 = time.perf_counter()
         self.pool.advance_round()
@@ -443,10 +505,24 @@ class FLServer:
                                 plan.probe_epochs, plan.completion_epochs,
                                 deadline_s=outcome.deadline_s)
 
+        # ---- attack injection (after training, before aggregation) ---
+        # adversarial survivors upload corrupted params, relative to the
+        # dispatch-time global model, from the attack's own RNG stream
+        adversaries = _empty_ids()
+        if self.attack is not None and len(selected):
+            adv = self.attack.draw(cfg.n_devices, cfg.seed, ctx.round, selected)
+            adversaries = selected[adv]
+            for i in adversaries:
+                if int(i) in client_results:
+                    client_results[int(i)] = self.attack.corrupt(
+                        client_results[int(i)], self.global_params,
+                        cid=int(i), seed=cfg.seed, round_idx=ctx.round)
+
         if client_results:
             weights = [self.data_sizes[i] for i in client_results]
             self.global_params = robust_aggregate(
-                list(client_results.values()), weights, kind=cfg.aggregator)
+                list(client_results.values()), weights, kind=cfg.aggregator,
+                trim=cfg.agg_trim, f=cfg.agg_f, m_select=cfg.agg_m or None)
 
         # ---- telemetry (deterministic: recording never perturbs a run) ---
         tel = self.telemetry
@@ -478,7 +554,7 @@ class FLServer:
             test_loss=test_loss, r_t=r_t, r_e=r_e, d_acc=d_acc, reward=reward,
             cum_time=self._cum_time, cum_energy=self._cum_energy,
             failed=outcome.failed, stragglers=outcome.stragglers,
-            n_available=int(ctx.available.sum()),
+            adversaries=adversaries, n_available=int(ctx.available.sum()),
             executor=self._executor_label)
         self.history.append(result)
         policy.observe(ctx, result, probe_ids if plan.has_probe else None,
@@ -497,8 +573,13 @@ class FLServer:
         clock."""
         from repro_torch.fl.async_engine import AsyncRoundEngine
 
-        AsyncRoundEngine(self, policy).run(aggregations or self.cfg.rounds,
-                                           verbose=verbose)
+        if self.topology is not None:
+            from repro_torch.fl.topology import HierarchicalAsyncEngine
+
+            engine = HierarchicalAsyncEngine(self, policy)
+        else:
+            engine = AsyncRoundEngine(self, policy)
+        engine.run(aggregations or self.cfg.rounds, verbose=verbose)
         return self.history
 
     @property

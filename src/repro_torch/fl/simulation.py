@@ -17,7 +17,7 @@ Latency/energy of a round for device i:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -60,11 +60,22 @@ class DevicePool:
     ``(N,)`` vectors sampled once at construction; dynamics are delegated to
     the scenario models.  ``DevicePool(n, seed)`` with no models is the
     ``uniform`` scenario (Markov load, always available, no failures).
+
+    ``region`` holds static region labels (``regions=``, contiguous blocks
+    in a regioned scenario; a flat fleet is one region, label 0) named by
+    ``region_names``; ``tier_probs`` may then be one row per region.
+    ``tiers`` replaces the tier table, and ``attack`` is the scenario's
+    :class:`~repro_torch.fl.attacks.AttackModel` (held, not consumed: the
+    engines resolve it and draw from its own RNG stream, never ``rng``).
     """
 
     def __init__(self, n_devices: int, seed: int = 0,
                  tier_probs: Optional[List[float]] = None, *,
-                 load_model=None, availability=None, failures=None):
+                 tiers: Optional[Sequence[Sequence[float]]] = None,
+                 load_model=None, availability=None, failures=None,
+                 attack=None,
+                 regions: Optional[np.ndarray] = None,
+                 region_names: Optional[Sequence[str]] = None):
         from repro_torch.fl.scenarios import (   # deferred: scenarios imports us
             AlwaysAvailable,
             FailureModel,
@@ -73,13 +84,38 @@ class DevicePool:
 
         self.n = n_devices
         self.rng = np.random.default_rng(seed)
+        if regions is None:
+            self.region = np.zeros(n_devices, dtype=np.int64)
+        else:
+            self.region = np.asarray(regions, dtype=np.int64)
+            if len(self.region) != n_devices:
+                raise ValueError(f"regions has {len(self.region)} labels for "
+                                 f"{n_devices} devices")
+        self.n_regions = int(self.region.max()) + 1 if n_devices else 1
+        self.region_names = (list(region_names) if region_names is not None
+                             else [f"region{i}" for i in range(self.n_regions)])
+        if len(self.region_names) != self.n_regions:
+            raise ValueError(f"{len(self.region_names)} region names for "
+                             f"{self.n_regions} region labels")
         tier_probs = np.asarray(tier_probs if tier_probs is not None
                                 else [0.25, 0.5, 0.25], dtype=np.float64)
-        tier_table = np.asarray(_TIERS, dtype=np.float64)
+        tier_table = np.asarray(tiers if tiers is not None else _TIERS,
+                                dtype=np.float64)
         # one inverse-CDF draw for tiers, one (4, N) block for the jitters
         u = self.rng.random(n_devices)
-        cdf = np.cumsum(tier_probs) / tier_probs.sum()
-        self.tier = np.minimum(np.searchsorted(cdf, u), len(tier_table) - 1)
+        if tier_probs.ndim == 2:
+            # one tier mix per region: the same draw, each device's inverse
+            # CDF gathered from its region's row
+            if len(tier_probs) != self.n_regions:
+                raise ValueError(f"tier_probs has {len(tier_probs)} rows for "
+                                 f"{self.n_regions} regions")
+            cdf = np.cumsum(tier_probs, axis=1) / tier_probs.sum(axis=1,
+                                                                 keepdims=True)
+            self.tier = np.minimum((u[:, None] > cdf[self.region]).sum(axis=1),
+                                   len(tier_table) - 1)
+        else:
+            cdf = np.cumsum(tier_probs) / tier_probs.sum()
+            self.tier = np.minimum(np.searchsorted(cdf, u), len(tier_table) - 1)
         base = tier_table[self.tier]                        # (N, 4)
         jit = np.exp(0.25 * self.rng.standard_normal((4, n_devices)))
         self.speed = base[:, 0] * jit[0]
@@ -91,6 +127,7 @@ class DevicePool:
         self.availability = (availability if availability is not None
                              else AlwaysAvailable())
         self.failures = failures if failures is not None else FailureModel()
+        self.attack = attack
         self._load_state = self.load_model.init_state(n_devices, self.rng)
         self._avail_state = self.availability.init_state(n_devices, self.rng)
         self.round_idx = 0
@@ -152,6 +189,10 @@ class DevicePool:
             mask = mask.copy()
             mask[int(self.rng.integers(self.n))] = True
         return mask
+
+    def region_ids(self, region: int) -> np.ndarray:
+        """Device ids carrying the given region label."""
+        return np.flatnonzero(self.region == region)
 
     def draw_failures(self, rng: np.random.Generator, selected: np.ndarray,
                       completion_s: np.ndarray):

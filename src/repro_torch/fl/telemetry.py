@@ -54,9 +54,30 @@ class DeviceTelemetry:
         self.merge_count = np.zeros(n_devices, np.int64)
         self.cadence_s = 0.0                       # EWMA time between merges
         self._cadence_seen = False
+        # static region labels, set by the server from its DevicePool (a
+        # flat fleet is one region, label 0)
+        self.region = np.zeros(n_devices, dtype=np.int64)
+        self.region_names = ["region0"]
 
     # ------------------------------------------------------------------
-    # observation feeds (called by the server)
+    # region labels (static)
+    # ------------------------------------------------------------------
+    def set_regions(self, labels: np.ndarray, names) -> None:
+        labels = np.asarray(labels, dtype=np.int64)
+        if len(labels) != self.n:
+            raise ValueError(f"{len(labels)} region labels for {self.n} devices")
+        self.region = labels
+        self.region_names = list(names)
+
+    def region_mean(self, values: np.ndarray) -> dict:
+        """Per-region mean of any (N,) statistic, keyed by region name, e.g.
+        ``tel.region_mean(tel.online_frac)``."""
+        values = np.asarray(values, dtype=np.float64)
+        return {name: float(values[self.region == r].mean())
+                for r, name in enumerate(self.region_names)}
+
+    # ------------------------------------------------------------------
+    # observation feeds (called by the round engines)
     # ------------------------------------------------------------------
     def observe_availability(self, mask: np.ndarray) -> None:
         """Fleet-wide online mask, once per round."""

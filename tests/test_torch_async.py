@@ -270,8 +270,10 @@ def test_async_executor_registry():
     ex = tfl.make_executor("async")
     assert isinstance(ex, tfl.AsyncDispatchExecutor)
     assert tfl.executor_label(ex) == jfl.executor_label(jfl.make_executor("async"))
-    with pytest.raises(NotImplementedError, match="vmapped"):
-        tfl.make_executor("async", inner="vmapped")
+    vm = tfl.make_executor("async", inner="vmapped")
+    assert isinstance(vm.inner, tfl.VmappedExecutor)
+    assert tfl.executor_label(vm) == jfl.executor_label(
+        jfl.make_executor("async", inner="vmapped"))
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -350,9 +352,11 @@ def test_buffered_aggregate_equal(kind):
 
 
 def test_buffered_aggregate_refuses_robust_kinds():
+    """Unknown robust and staleness kinds are refused as in the reference;
+    the robust kinds themselves are held to it in test_torch_attacks."""
     g = _cpu(_toy_params(0))
-    with pytest.raises(NotImplementedError, match="robustness"):
-        tagg.buffered_aggregate(g, [g], [1.0], [0], robust="krum")
+    with pytest.raises(ValueError, match="aggregator"):
+        tagg.buffered_aggregate(g, [g], [1.0], [0], robust="bulyan")
     with pytest.raises(ValueError, match="staleness"):
         tagg.staleness_weight([0], "exponential")
 
