@@ -7,9 +7,9 @@ With no argument it runs every step below.  Given step names (``build``,
 ``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
 ``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
 ``path5_async``, ``vmapped``, ``path8_hierarchy``, ``path6_lm``,
-``path7_ssm``) it builds every library, runs only those steps and ends with
-the summary line and the card line; the ``kernels`` line and the last line
-need the whole run.
+``path7_ssm``, ``path9_lm_fl``, ``obs``) it builds every library, runs only
+those steps and ends with the summary line and the card line; the
+``kernels`` line and the last line need the whole run.
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -87,7 +87,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the same Q-net, an asynchronous trace run schedules the same jobs, one
    hierarchical FedRank round and one ``krum`` round on
    ``byzantine-signflip`` give the same cohorts and adversaries (params
-   within 1e-4), and the
+   within 1e-4), one LM FL round (yi-6b smoke, fp32, 8 devices, k=2) gives
+   the same cohort and params within 1e-4, and the
    yi-6b, h2o-danube, hymba and rwkv6 smoke LMs give the same logits over a
    prefill (by the kernels) and 8 decode steps; at full width (2 layers,
    fp32) prefill by the kernels and decode through the ring cache and the
@@ -146,12 +147,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     ``rwkv6`` launch per layer and decode step, nothing else), then
     one serve call of each model (8 new tokens) under ``torch.profiler``
     (the profiles report each flash kernel's device time apart), and decode
-    alone (batch 4 after a 128-token prefill) by the kernels and with the
-    mixers' plain versions, in turns: kernels, SSM launches, device and
-    wall ms per step;
-12. a ``summary`` line (each step's status, host seconds, largest error
-    and device idle shares; printed also when a step fails, before the
-    error),
+    alone (batch 4 after a 128-token prefill; depth cut to 8 of the 32
+    layers, 16 timed steps) by the kernels and with the mixers' plain
+    versions, in turns: kernels, SSM launches, device and wall ms per step;
+12. path 9, ``path9_lm_fl``, an LM as the FL global model: Yi-6B at its
+    full published width (bf16, weights from a seed), depth cut to 2
+    layers (0.87 B parameters; full depth, 12.1 GB a copy, does not fit the
+    vmapped executor's stacked copies and gradients), 32 devices, k=4,
+    l_ep=1, local batch 8, sequences of 64 tokens from ``make_lm_stream``:
+    one ``fedavg`` and one ``fedrank`` round (a fresh Q-net), each under the
+    sequential and the vmapped executor (cohorts online, unique, at most k;
+    a finite test loss; exactly 2 ``select_topk`` launches a FedRank round;
+    the vmapped round's cohort equal to the sequential one's and its bf16
+    params within two bf16 ulps at each leaf's largest magnitude; host s a
+    round and peak memory), then one FedRank round under
+    ``torch.profiler``;
+13. ``obs``: observed runs (``FLConfig.observe``) at paths 1 and 5's sizes,
+    sync FedRank rounds on ``high-churn`` and async FedRank aggregations on
+    ``trace-synthetic-week``, each beside the unobserved run in turns (host
+    s per round with and without the recorder); the records under
+    ``build/obs/`` pass the port's ``check_run`` (coverage >= 0.5) and list
+    ``executor.*``, ``select_topk.cuda`` and ``fleet_state.cuda`` with fenced
+    times; one round inside ``trace_gate`` writes a Chrome trace;
+14. a ``summary`` line (each step's status, host seconds, its phases'
+    seconds, largest error and device idle shares; printed also when a step
+    fails, before the error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
     with its times and launches; ``select_topk`` adds its design and the op's
     time host included, ``pairwise_rank`` its loss-only route,
@@ -220,6 +240,7 @@ HIDDEN = 64                  # the Q-net's hidden width (core/qnet.py)
 # The summary line: each step's status, its largest error and the device
 # idle shares its profiles measured.  Every other number is in the full lines
 # above and in the kernels line.
+_T0 = time.perf_counter()    # the script's start: the summary's total seconds
 _STEPS: dict = {}            # step name -> {"status": ..., "max_err": x, "idle": [...]}
 _CURRENT: list = []
 
@@ -252,8 +273,19 @@ def step(name):
     _STEPS[name]["status"] = "pass"
 
 
+def timed(name, fn, *args, **kw):
+    """Run one phase of the current step; its host seconds go into the
+    summary under the step's ``phases``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        phases = _STEPS[_CURRENT[-1]].setdefault("phases", {})
+        phases[name] = round(time.perf_counter() - t0, 1)
+
+
 def summary_line(ok, error=None) -> str:
-    out = {"ok": ok, "steps": _STEPS}
+    out = {"ok": ok, "seconds": round(time.perf_counter() - _T0, 1), "steps": _STEPS}
     if error is not None:
         out["error"] = repr(error)[:400]
     return json.dumps({"summary": out}, separators=(",", ":"))
@@ -469,11 +501,13 @@ def pairwise_inputs(torch, b, n, seed, *, masked_frac=0.3, case="random"):
 
 def pairwise_plain(torch, s, t, m, hard):
     """Plain loss (B,) and autograd score gradient (B, N), in the inputs'
-    precision; row by row where the (B, N, N) matrices would be large."""
+    precision; in chunks of cohorts whose (chunk, N, N) matrices hold at
+    most 2^26 entries (one cohort a chunk at N = 8192)."""
     from repro_torch.kernels.pairwise_rank.ref import pairwise_rank_ref
 
-    rows = [slice(0, s.shape[0])] if s.shape[0] * s.shape[1] ** 2 <= 2**26 else [
-        slice(r, r + 1) for r in range(s.shape[0])]
+    b, n = s.shape
+    step = max(1, 2**26 // (n * n))
+    rows = [slice(r, min(r + step, b)) for r in range(0, b, step)]
     losses, grads = [], []
     for r in rows:
         x = s[r].detach().clone().requires_grad_(True)
@@ -2617,19 +2651,23 @@ def phase_ssm_serve_profile(torch):
         torch.cuda.empty_cache()
 
 
-def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, timed=32):
-    """Decode alone, Hymba-1.5B and RWKV6-3B at full width and depth (bf16,
-    batch 4, after a 128-token prefill): the serving loops' in-place step by
+def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, steps=16,
+                             layers=8):
+    """Decode alone, Hymba-1.5B and RWKV6-3B at full width and depth cut to
+    ``layers`` of their 32 (bf16, batch 4, after a 128-token prefill; the
+    serving checks above run them whole): the serving loops' in-place step by
     the kernels (this tree's route), and the same step with the mixers'
     ops swapped for their plain versions (the route decode took before
     SSM decode went through the kernels), in turns.  Each window: 8 steps
     under torch.profiler (device kernels, SSM-kernel events and device
     busy ms per step; SSM-kernel launches per step from the wrappers'
-    counters, which must be one a layer) and 32 unprofiled steps (wall ms
+    counters, which must be one a layer) and 16 unprofiled steps (wall ms
     per step, host clock around a final synchronise).  The profiler can
     lose events when a window holds ~39,000 kernels (one SSM event of 256
     and 105 others in one window on an H100), so its counts are reported
     and the launches are checked by the counters."""
+    import dataclasses
+
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2644,11 +2682,11 @@ def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, tim
     plain = {"wkv6_heads": wkv6_heads_ref, "selective_scan": selective_scan_ref}
     out = {}
     for arch in ("hymba-1.5b", "rwkv6-3b"):
-        cfg = get_model_config(arch)
+        cfg = dataclasses.replace(get_model_config(arch), n_layers=layers)
         params = T.init_params(0, cfg, "cuda")
         rng = np.random.default_rng(0)
         tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)), device="cuda")
-        max_len = prompt + 4 * (warm + profiled + timed)
+        max_len = prompt + 4 * (warm + profiled + steps)
         logits, state = T.prefill(params, cfg, tok, impl="flash", last_only=True,
                                   max_len=max_len)
         nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
@@ -2666,10 +2704,10 @@ def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, tim
                     torch.cuda.synchronize()
                 after = read_counts()
                 t0 = time.perf_counter()
-                for _ in range(timed):
+                for _ in range(steps):
                     logits, state = T._decode_step_into(params, cfg, state, nxt)
                 torch.cuda.synchronize()
-                wall_ms = 1e3 * (time.perf_counter() - t0) / timed
+                wall_ms = 1e3 * (time.perf_counter() - t0) / steps
             finally:
                 for name, fn in kernels.items():
                     setattr(ssm_lib, name, fn)
@@ -2691,10 +2729,259 @@ def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, tim
                     for r in out[arch]["kernels"])
                 and all(r["ssm_kernel_launches_per_step"] == 0 for r in out[arch]["plain"]),
                 f"{arch}: {out[arch]}")
-        emit(phase="decode_profile", path="ssm_serving", model=arch, batch=batch,
-             prompt=prompt, order="kernels, plain, plain, kernels", **out[arch])
+        emit(phase="decode_profile", path="ssm_serving", model=arch, layers=layers,
+             batch=batch, prompt=prompt, order="kernels, plain, plain, kernels",
+             **out[arch])
         del params, state, logits
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path 9: an LM as the FL global model
+# ---------------------------------------------------------------------------
+
+LM_FL = dict(arch="yi-6b", layers=2, n_devices=32, k=4, l_ep=1, batch=8, seq=64,
+             seqs_per_device=16, test_seqs=16, lr=0.1)
+
+
+def lm_fl_data(vocab, n_devices, per_device, seq, test, seed=0):
+    """A token stream from ``make_lm_stream`` cut into (x, y) sequences of
+    ``seq`` next-token pairs, ``per_device`` strided sequences a device and
+    the last ``test`` as the test set."""
+    import numpy as np
+
+    from repro_torch.data import FederatedData, SyntheticClassificationDataset, make_lm_stream
+
+    n_seq = n_devices * per_device + test
+    stream = make_lm_stream(n_tokens=n_seq * (seq + 1) + 16, vocab=vocab, seed=seed)
+    cut = np.asarray(stream[:n_seq * (seq + 1)]).reshape(n_seq, seq + 1)
+    x, y = cut[:, :-1], cut[:, 1:]
+    n_train = n_devices * per_device
+    train = SyntheticClassificationDataset(x[:n_train], y[:n_train], vocab)
+    held = SyntheticClassificationDataset(x[n_train:], y[n_train:], vocab)
+    return FederatedData(train, held, [np.arange(i, n_train, n_devices)
+                                      for i in range(n_devices)])
+
+
+def bf16_ulp(torch, leaf) -> float:
+    """One bf16 ulp at the leaf's largest magnitude: 2^(floor(log2 max|x|) - 7)."""
+    top = float(leaf.float().abs().max())
+    return 0.0 if top == 0 else 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+# vmapped vs sequential LM round, bf16 leaves: two roundings may each move an
+# entry by one ulp of itself (a client's SGD step from a differently rounded
+# bf16 gradient, then fedavg's rounding of the fp32 mean), so two ulps at the
+# leaf's largest magnitude
+LM_FL_ULPS = 2
+
+
+def phase_lm_fl_path(torch):
+    """Path 9: Yi-6B at its full published width (d_model 4096, 32/4 heads of
+    128, FFN 11008, vocab 64000, bf16, weights from a seed), depth cut to 2
+    layers, as the FL global model: 32 devices, k=4, l_ep=1, local batch 8,
+    sequences of 64 tokens.  One sync round of ``fedavg`` and one of
+    ``fedrank`` (a fresh Q-net), each under the sequential and the vmapped
+    executor in turns from the same init; the vmapped round must pick the
+    sequential one's cohort, and its params lie within one bf16 ulp of each
+    leaf's largest magnitude.  Then one FedRank round under torch.profiler."""
+    import dataclasses
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl import FLConfig, FLServer, LMTask, build_policy
+    from repro_torch.fl._tree import tree_leaves
+
+    c = LM_FL
+    cfg = dataclasses.replace(get_model_config(c["arch"]), n_layers=c["layers"])
+    data = lm_fl_data(cfg.vocab_size, c["n_devices"], c["seqs_per_device"], c["seq"],
+                      c["test_seqs"])
+    task = LMTask(cfg, seq_len=c["seq"])
+    emit(phase="lm_fl_config", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, params=cfg.param_count(),
+         gb_per_copy=2 * cfg.param_count() / 1e9,
+         full_depth_gb_per_copy=2 * get_model_config(c["arch"]).param_count() / 1e9,
+         note="full depth does not fit the vmapped executor's stacked copies and "
+              "gradients of the 10-client probe cohort on one 80 GB card",
+         **{k: v for k, v in c.items() if k not in ("arch", "layers")})
+    reset_counts()                                # every count to 0
+    runs, servers = {}, {}
+    for name in ("fedavg", "fedrank"):
+        results = {}
+        for ex in (("sequential", "vmapped") if name == "fedavg" else ("vmapped", "sequential")):
+            fl = FLConfig(n_devices=c["n_devices"], k_select=c["k"], rounds=1,
+                          l_ep=c["l_ep"], local_batch=c["batch"], lr=c["lr"], seed=0,
+                          executor=ex)
+            srv = FLServer(fl, task, data, device="cuda")
+            pol = (build_policy("fedrank", k=c["k"], seed=0) if name == "fedrank"
+                   else build_policy("fedavg"))
+            seen = checked_policy(pol, srv)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = read_counts()
+            res = srv.run_round(pol)
+            torch.cuda.synchronize()
+            launched = {k: n - before[k] for k, n in read_counts().items()}
+            check_round(srv, res, c["k"])
+            require(len(seen) == 1 and math.isfinite(res.test_loss), (name, ex, res))
+            want = 2 if name == "fedrank" else 0           # probe_set and select
+            require(launched["select_topk"] == want, (name, ex, launched))
+            require(all(l.dtype == torch.bfloat16 or l.dtype == torch.float32
+                        for l in tree_leaves(srv.global_params)), "leaf dtypes")
+            require(all(bool(torch.isfinite(l).all()) for l in tree_leaves(srv.global_params)),
+                    (name, ex, "non-finite params"))
+            results[ex] = dict(cohort=res.selected.tolist(), probe=res.probe_set.tolist(),
+                               test_loss=res.test_loss, host_s=res.host_time_s,
+                               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                               launches=launched)
+            servers[(name, ex)] = (srv, pol)
+        s_seq, s_vm = servers[(name, "sequential")][0], servers[(name, "vmapped")][0]
+        diffs, tols = [], []
+        for a, b in zip(tree_leaves(s_seq.global_params), tree_leaves(s_vm.global_params)):
+            diffs.append(float((a.float() - b.float()).abs().max()))
+            tols.append(bf16_ulp(torch, a) if a.dtype == torch.bfloat16 else EXEC_TOL)
+        # the largest difference in units of the leaf's ulp (or of 1e-5)
+        worst = max(d / t if t else (0.0 if d == 0 else math.inf) for d, t in zip(diffs, tols))
+        require(results["sequential"]["cohort"] == results["vmapped"]["cohort"]
+                and results["sequential"]["probe"] == results["vmapped"]["probe"],
+                (name, results))
+        require(worst <= LM_FL_ULPS, (name, "vmapped params off", max(diffs), worst))
+        runs[name] = dict(results, max_param_diff=max(diffs), max_diff_in_ulps=worst)
+        emit(phase="lm_fl", policy=name,
+             tolerance=f"vmapped vs sequential: per bf16 leaf {LM_FL_ULPS} bf16 ulps "
+                       "at the leaf's largest magnitude (one ulp = "
+                       "2^(floor(log2 max|x|)-7)); fp32 leaves 1e-5 (as ulps of 1)",
+             **runs[name])
+        for ex in ("sequential", "vmapped"):
+            if name == "fedavg":
+                del servers[(name, ex)]
+        torch.cuda.empty_cache()
+    # one more FedRank round of the vmapped server under torch.profiler
+    srv, pol = servers[("fedrank", "vmapped")]
+    del servers[("fedrank", "sequential")]
+    torch.cuda.empty_cache()
+    before = read_counts()
+    prof = profile_summary(torch, lambda: srv.run_round(pol))
+    launched = {k: n - before[k] for k, n in read_counts().items()}
+    require(launched["select_topk"] == 2, launched)
+    counts = read_counts()                        # read just after
+    emit(phase="profile", path="lm_fl", policy="fedrank", executor="vmapped",
+         host_s=srv.history[-1].host_time_s, launches=launched, **prof)
+    emit(phase="main_launches", path="lm_fl", launches=counts)
+    del servers, srv
+    torch.cuda.empty_cache()
+    return counts, runs
+
+
+def phase_cpu_agreement_lm_fl(torch):
+    """One LM FL round (yi-6b smoke, fp32, 8 devices, k=2, sequences of 16)
+    on the CPU and on the card from the same weights: the same cohort, params
+    within CPU_CARD_TOL."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl import FLConfig, FLServer, LMTask, build_policy
+    from repro_torch.fl._tree import tree_leaves
+
+    cfg = get_model_config("yi-6b", smoke=True)
+    data = lm_fl_data(cfg.vocab_size, 8, 28, 16, 32)
+    out, init = {}, None
+    for dev in ("cpu", "cuda"):
+        fl = FLConfig(n_devices=8, k_select=2, rounds=1, l_ep=1, lr=0.3, seed=0)
+        srv = FLServer(fl, LMTask(cfg, seq_len=16), data, device=dev)
+        if init is None:
+            init = (srv.global_params, srv._last_acc)
+        else:
+            srv.global_params, srv._last_acc = tree_to(init[0], dev), init[1]
+        res = srv.run_round(build_policy("fedavg"))
+        out[dev] = (res.selected.tolist(), [l.cpu() for l in tree_leaves(srv.global_params)],
+                    res.test_loss)
+    err = max(float((a - b).abs().max()) for a, b in zip(out["cpu"][1], out["cuda"][1]))
+    require(out["cpu"][0] == out["cuda"][0], ("LM FL cohorts", out["cpu"][0], out["cuda"][0]))
+    require(err <= CPU_CARD_TOL and math.isfinite(out["cuda"][2]), ("LM FL params", err))
+    emit(phase="cpu_vs_card", run="lm_fl/yi-6b-smoke", cohort=out["cuda"][0],
+         max_abs_param_err=err, tolerance=CPU_CARD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# observability
+# ---------------------------------------------------------------------------
+
+
+def phase_obs(torch, data):
+    """Observed runs at paths 1 and 5's sizes (1000 devices, k=10): sync
+    FedRank rounds on ``high-churn`` and async FedRank aggregations on
+    ``trace-synthetic-week``, each beside the same run unobserved, in turns
+    (host s per round or aggregation with and without the recorder, whose
+    timings fence every executor and kernel op).  The records go to
+    ``build/obs/``; the port's ``check_run`` passes (span coverage >= 0.5),
+    and the op table lists ``executor.*``, ``select_topk.cuda`` and
+    ``fleet_state.cuda``.  One more observed round runs inside a
+    ``trace_gate`` block, which writes a Chrome trace."""
+    import shutil
+
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+    from repro_torch.fl.async_engine import AsyncRoundEngine
+    from repro_torch.obs import clear_profiler, trace_gate
+    from repro_torch.obs.report import check_run, coverage, load_run, op_table
+
+    root = ROOT / "build" / "obs"
+    shutil.rmtree(root, ignore_errors=True)
+    out, ops = {}, {}
+    reset_counts()
+    for label, scenario, mode in (("sync", "high-churn", "sync"),
+                                  ("async", "trace-synthetic-week", "async")):
+        kw = (dict(mode="async", async_concurrency=30, staleness="polynomial")
+              if mode == "async" else {})
+        runs = {}
+        for observed in (False, True):
+            cfg = FLConfig(n_devices=1000, k_select=10, rounds=3, l_ep=5, scenario=scenario,
+                           observe=str(root / label) if observed else None, **kw)
+            srv = FLServer(cfg, MLPTask(), data, device="cuda")
+            if scenario.startswith("trace"):
+                start_before_first_change(srv)
+            pol = build_policy("fedrank", k=10, seed=0)
+            runs[observed] = dict(srv=srv, pol=pol, host_s=[],
+                                  eng=AsyncRoundEngine(srv, pol) if mode == "async" else None)
+        for r in range(3):
+            for observed in ((False, True) if r % 2 == 0 else (True, False)):
+                run = runs[observed]
+                if mode == "sync":
+                    res = run["srv"].run_round(run["pol"])
+                    check_round(run["srv"], res, 10)
+                else:
+                    res = run["eng"].run(1)[-1]
+                    check_async_history(torch, run["srv"], [res], 10)
+                run["host_s"].append(res.host_time_s)
+        obs_srv = runs[True]["srv"]
+        require(runs[False]["srv"].obs.enabled is False, "unobserved run has a recorder")
+        trace_bytes = None
+        if mode == "sync":
+            with trace_gate(str(root / "trace")) as path:
+                run_res = obs_srv.run_round(runs[True]["pol"])
+                check_round(obs_srv, run_res, 10)
+            trace_bytes = Path(path).stat().st_size
+            require(trace_bytes > 0, "empty Chrome trace")
+        obs_srv.obs.close()
+        clear_profiler(obs_srv.obs)
+        _, rounds, events = load_run(str(root / label))
+        problems = check_run(rounds)
+        require(not problems, (label, problems))
+        table = op_table(rounds)
+        ops[label] = {row["op"]: [row["n"], row["wall_s"]] for row in table}
+        out[label] = dict(rounds=len(rounds), events=len(events),
+                          coverage=coverage(rounds),
+                          host_s_unobserved=runs[False]["host_s"],
+                          host_s_observed=runs[True]["host_s"],
+                          spans=sorted({s["span"] for r in rounds for s in r["spans"]}),
+                          ops=ops[label], chrome_trace_bytes=trace_bytes)
+        emit(phase="obs", run=f"{label}/{scenario}/fedrank", **out[label])
+        del runs, obs_srv
+    every = {name for table in ops.values() for name in table}
+    require(any(n.startswith("executor.") for n in every)
+            and {"select_topk.cuda", "fleet_state.cuda"} <= every, sorted(every))
+    require(all(ops[k][n][1] > 0 for k in ops for n in ops[k]), "an op without time")
+    counts = read_counts()
+    emit(phase="main_launches", path="obs", launches=counts)
     return out
 
 
@@ -2755,7 +3042,7 @@ def spill_bytes(log):
 STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attention",
          "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
          "path3_baselines", "path4_trace", "path5_async", "vmapped",
-         "path8_hierarchy", "path6_lm", "path7_ssm")
+         "path8_hierarchy", "path6_lm", "path7_ssm", "path9_lm_fl", "obs")
 
 
 def run_phases(torch, card, only=()):
@@ -2811,59 +3098,61 @@ def run_phases(torch, card, only=()):
     # ---- 2-3: kernels against their plain versions, timings -----------
     if want("select_topk"):
         with step("select_topk"):
-            max_err = phase_kernel_vs_plain(torch)
-            timings = phase_timings(torch, card)
-            topk_host = phase_topk_host(torch, card)
+            max_err = timed("vs_plain", phase_kernel_vs_plain, torch)
+            timings = timed("timings", phase_timings, torch, card)
+            topk_host = timed("op_host", phase_topk_host, torch, card)
     if want("pairwise_rank"):
         with step("pairwise_rank"):
-            pr_errs = phase_pairwise_vs_plain(torch)
-            pr_timings = phase_pairwise_timings(torch, card)
+            pr_errs = timed("vs_plain", phase_pairwise_vs_plain, torch)
+            pr_timings = timed("timings", phase_pairwise_timings, torch, card)
     if want("fleet_state"):
         with step("fleet_state"):
             t0 = time.perf_counter()
-            big = large_trace()
+            big = timed("large_trace", large_trace)
             emit(phase="large_trace", devices=big.n_devices, segments=big.n_segments,
                  seconds=time.perf_counter() - t0)
-            fs_err = phase_fleet_state_vs_plain(torch, big)
-            fs_timings = phase_fleet_state_timings(torch, card, big)
-            fs_host = phase_fleet_state_host(torch, card)
+            fs_err = timed("vs_plain", phase_fleet_state_vs_plain, torch, big)
+            fs_timings = timed("timings", phase_fleet_state_timings, torch, card, big)
+            fs_host = timed("op_host", phase_fleet_state_host, torch, card)
     if want("flash_attention"):
         with step("flash_attention"):
-            fa_err = phase_flash_vs_plain(torch)
-            fa_timings = phase_flash_timings(torch, card)
+            fa_err = timed("vs_plain", phase_flash_vs_plain, torch)
+            fa_timings = timed("timings", phase_flash_timings, torch, card)
     if want("mamba_rwkv6"):
         with step("mamba_rwkv6"):
-            scan_err = phase_scan_vs_plain(torch)
-            wkv_err = phase_wkv_vs_plain(torch)
-            ssm_timings = phase_ssm_timings(torch, card)
+            scan_err = timed("mamba_vs_plain", phase_scan_vs_plain, torch)
+            wkv_err = timed("rwkv6_vs_plain", phase_wkv_vs_plain, torch)
+            ssm_timings = timed("timings", phase_ssm_timings, torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
     if want("cpu_vs_card"):
         with step("cpu_vs_card"):
-            phase_cpu_agreement(torch)
-            phase_cpu_agreement_policies(torch, small_data(4000, 50))
-            phase_cpu_agreement_il(torch)
-            phase_cpu_agreement_async(torch)
-            phase_cpu_agreement_hierarchy(torch)
-            phase_cpu_agreement_lm(torch)
+            timed("topk", phase_cpu_agreement, torch)
+            timed("policies", phase_cpu_agreement_policies, torch, small_data(4000, 50))
+            timed("il", phase_cpu_agreement_il, torch)
+            timed("async", phase_cpu_agreement_async, torch)
+            timed("hierarchy", phase_cpu_agreement_hierarchy, torch)
+            timed("lm", phase_cpu_agreement_lm, torch)
+            timed("lm_fl", phase_cpu_agreement_lm_fl, torch)
     if want("full_width"):
         with step("full_width"):
             phase_full_width_agreement(torch)
 
-    # ---- 5-11: the paths, each with its own launch counts --------------
-    if any(want(name) for name in STEPS if name.startswith("path") or name == "vmapped"):
+    # ---- 5-13: the paths, each with its own launch counts --------------
+    if any(want(name) for name in STEPS
+           if name.startswith("path") or name in ("vmapped", "obs")):
         t0 = time.perf_counter()
         data = small_data(64_000, 1000)
         emit(phase="main_data", samples=64_000, clients=1000,
              seconds=time.perf_counter() - t0)
     if want("path1_sync"):
         with step("path1_sync"):
-            sync_counts, srv, policy = phase_main_path(torch, data)
-            phase_profile(torch, srv, policy)
+            sync_counts, srv, policy = timed("rounds", phase_main_path, torch, data)
+            timed("profile", phase_profile, torch, srv, policy)
     if want("path2_il"):
         with step("path2_il"):
-            il_counts, demos, q = phase_il_path(torch, data)
-            phase_il_profile(torch, demos, q)
+            il_counts, demos, q = timed("pipeline", phase_il_path, torch, data)
+            timed("profile", phase_il_profile, torch, demos, q)
     if want("path3_baselines"):
         with step("path3_baselines"):
             phase_baselines(torch, data)
@@ -2872,9 +3161,10 @@ def run_phases(torch, card, only=()):
             trace_counts = phase_trace_path(torch, data)
     if want("path5_async"):
         with step("path5_async"):
-            async_runs, (async_srv, async_policy) = phase_async_path(torch, data)
-            phase_async_profile(torch, async_srv, async_policy)
-            phase_async_oracle(torch, data)
+            async_runs, (async_srv, async_policy) = timed("runs", phase_async_path,
+                                                          torch, data)
+            timed("profile", phase_async_profile, torch, async_srv, async_policy)
+            timed("oracle", phase_async_oracle, torch, data)
     if want("vmapped"):
         with step("vmapped"):
             phase_vmapped(torch, data)
@@ -2883,13 +3173,19 @@ def run_phases(torch, card, only=()):
             hier_counts, hier_runs = phase_hierarchy_path(torch, data)
     if want("path6_lm"):
         with step("path6_lm"):
-            lm_counts, lm_runs = phase_serving_path(torch)
-            phase_serve_profile(torch)
+            lm_counts, lm_runs = timed("serving", phase_serving_path, torch)
+            timed("profile", phase_serve_profile, torch)
     if want("path7_ssm"):
         with step("path7_ssm"):
-            ssm_counts, ssm_runs = phase_ssm_serving_path(torch)
-            phase_ssm_serve_profile(torch)
-            phase_ssm_decode_profile(torch)
+            ssm_counts, ssm_runs = timed("serving", phase_ssm_serving_path, torch)
+            timed("serve_profile", phase_ssm_serve_profile, torch)
+            timed("decode_profile", phase_ssm_decode_profile, torch)
+    if want("path9_lm_fl"):
+        with step("path9_lm_fl"):
+            lm_fl_counts, _ = phase_lm_fl_path(torch)
+    if want("obs"):
+        with step("obs"):
+            phase_obs(torch, data)
     if only:
         return None
 
@@ -2914,6 +3210,7 @@ def run_phases(torch, card, only=()):
              device_kernels_per_op_call={k: r["device_kernels_per_op_call"]
                                          for k, r in topk_host.items()},
              launches_by_path={"path8_hierarchy": hier_counts["select_topk"],
+                               "path9_lm_fl": lm_fl_counts["select_topk"],
                                **{f"path8:{k}": r["select_topk_launches_per_round"]
                                   for k, r in hier_runs.items()
                                   if "select_topk_launches_per_round" in r}},

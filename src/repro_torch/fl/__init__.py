@@ -1,5 +1,5 @@
 from repro_torch.fl.simulation import DevicePool, DeviceProfile, RoundSystemState
-from repro_torch.fl.tasks import ClientTask, MLPTask
+from repro_torch.fl.tasks import ClientTask, LMTask, MLPTask
 from repro_torch.fl.client import local_train, make_parallel_local_train, probing_epoch
 from repro_torch.fl.aggregation import (
     AGGREGATORS,
@@ -77,7 +77,7 @@ __all__ = [
     "get_scenario", "available_scenarios",
     "AggregationTopology", "TierSpec", "register_topology", "get_topology",
     "available_topologies", "run_topology_round", "HierarchicalAsyncEngine",
-    "MLPTask", "ClientTask", "local_train", "probing_epoch",
+    "MLPTask", "LMTask", "ClientTask", "local_train", "probing_epoch",
     "make_parallel_local_train",
     "Trace", "ResampledFleet", "TraceSpec", "TraceLoad", "TraceAvailability",
     "SyntheticTraceSpec", "synthesize_trace",

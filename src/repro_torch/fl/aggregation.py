@@ -2,8 +2,10 @@
 Byzantine-robust reducers and the asynchronous engine's staleness-weighted
 buffer merge.
 
-:func:`fedavg` accumulates each leaf in fp32 in client order, as the
-reference does.  The robust reducers defend the merge against the attacks
+:func:`fedavg` accumulates each leaf in fp32 in client order and casts it
+back to the leaf's dtype, as the reference does.  Every reducer walks the
+params as a tree (:mod:`repro_torch.fl._tree`), so a nested LM model merges
+like a flat MLP.  The robust reducers defend the merge against the attacks
 in :mod:`repro_torch.fl.attacks`: :func:`trimmed_mean` (coordinate-wise
 trimmed weighted mean), :func:`coordinate_median` and :func:`krum` /
 :func:`multi_krum` (distance-score selection), dispatched by
@@ -30,6 +32,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.fl._tree import tree_leaves, tree_map
+
 Params = Dict[str, torch.Tensor]
 
 AGGREGATORS = ("mean", "trimmed_mean", "coordinate_median", "krum",
@@ -42,19 +46,19 @@ def fedavg(client_params: Sequence[Params], weights: Sequence[float]) -> Params:
     """Data-size-weighted parameter average (McMahan et al., 2017)."""
     w = np.asarray(weights, np.float64)
     w = w / w.sum()
-    out = {}
-    for name in client_params[0]:
-        leaves = [p[name] for p in client_params]
+
+    def combine(*leaves):
         acc = leaves[0].float() * float(w[0])
         for wi, leaf in zip(w[1:], leaves[1:]):
             acc = acc + leaf.float() * float(wi)
-        out[name] = acc.to(leaves[0].dtype)
-    return out
+        return acc.to(leaves[0].dtype)
+
+    return tree_map(combine, *client_params)
 
 
-def _stack(client_params: Sequence[Params], name: str) -> torch.Tensor:
+def _stack(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     """(m, ...) fp32 stack of one leaf over the clients."""
-    return torch.stack([p[name].float() for p in client_params])
+    return torch.stack([leaf.float() for leaf in leaves])
 
 
 def trimmed_mean(client_params: Sequence[Params], weights: Sequence[float],
@@ -72,16 +76,17 @@ def trimmed_mean(client_params: Sequence[Params], weights: Sequence[float],
                          f"got trim={trim} with {m} updates")
     w = np.asarray(weights, np.float64)
     w = (w / w.sum()).astype(np.float32)
-    out = {}
-    for name, leaf in client_params[0].items():
-        stack = _stack(client_params, name)
+
+    def combine(*leaves):
+        stack = _stack(leaves)
         ranks = torch.argsort(torch.argsort(stack, dim=0, stable=True),
                               dim=0, stable=True)
         keep = (ranks >= trim) & (ranks < m - trim)
         wb = torch.as_tensor(w, device=stack.device).view((m,) + (1,) * (stack.dim() - 1))
         kept_w = torch.where(keep, wb, torch.zeros((), device=stack.device))
-        out[name] = ((kept_w * stack).sum(dim=0) / kept_w.sum(dim=0)).to(leaf.dtype)
-    return out
+        return ((kept_w * stack).sum(dim=0) / kept_w.sum(dim=0)).to(leaves[0].dtype)
+
+    return tree_map(combine, *client_params)
 
 
 def coordinate_median(client_params: Sequence[Params]) -> Params:
@@ -90,23 +95,24 @@ def coordinate_median(client_params: Sequence[Params]) -> Params:
     give the lower one).  Data weights are ignored on purpose: a weighted
     median would let an adversary claiming a huge dataset drag it."""
     m = len(client_params)
-    out = {}
-    for name, leaf in client_params[0].items():
-        srt = torch.sort(_stack(client_params, name), dim=0).values
+
+    def combine(*leaves):
+        srt = torch.sort(_stack(leaves), dim=0).values
         mid = srt[m // 2] if m % 2 else (srt[m // 2 - 1] + srt[m // 2]) * 0.5
-        out[name] = mid.to(leaf.dtype)
-    return out
+        return mid.to(leaves[0].dtype)
+
+    return tree_map(combine, *client_params)
 
 
 def krum_scores(client_params: Sequence[Params], f: int = 1) -> np.ndarray:
     """(m,) Krum scores (Blanchard et al., 2017): each update's summed
     squared distance to its ``m - f - 2`` nearest peers (at least 1).  The
-    updates are flattened leaf by leaf in sorted-name order and the
+    updates are flattened leaf by leaf in the reference's leaf order and the
     distances accumulate in fp64 on the params' device; the (m, m) table
     comes to the host for the sort."""
     m = len(client_params)
-    names = sorted(client_params[0])
-    flat = torch.stack([torch.cat([p[n].double().reshape(-1) for n in names])
+    flat = torch.stack([torch.cat([leaf.double().reshape(-1)
+                                   for leaf in tree_leaves(p)])
                         for p in client_params])
     sq = torch.stack([((flat - flat[i]) ** 2).sum(dim=1) for i in range(m)])
     sq = sq.cpu().numpy()
@@ -224,19 +230,21 @@ def buffered_aggregate(global_params: Params, client_params: Sequence[Params],
         shrink = float(((w / w.sum()) * s).sum())
         reduced = robust_aggregate(client_params, w * s, kind=robust,
                                    trim=trim, f=f, m_select=m_select)
-        return {name: (g.float() * (1.0 - shrink) + reduced[name].float() * shrink
-                       ).to(g.dtype) for name, g in global_params.items()}
+        return tree_map(lambda g, r: (g.float() * (1.0 - shrink)
+                                      + r.float() * shrink).to(g.dtype),
+                        global_params, reduced)
     if kind == "constant":
         return fedavg(client_params, data_weights)
     coef = (w / w.sum()) * s
     keep = float(1.0 - coef.sum())
-    out = {}
-    for name, g in global_params.items():
+
+    def combine(g, *leaves):
         acc = g.float() * keep
-        for ci, p in zip(coef, client_params):
-            acc = acc + p[name].float() * float(ci)
-        out[name] = acc.to(g.dtype)
-    return out
+        for ci, leaf in zip(coef, leaves):
+            acc = acc + leaf.float() * float(ci)
+        return acc.to(g.dtype)
+
+    return tree_map(combine, global_params, *client_params)
 
 
 def weighted_delta_aggregate(global_params: Params,
@@ -246,5 +254,5 @@ def weighted_delta_aggregate(global_params: Params,
     """FedOpt-style: apply the weighted mean of client deltas with a server
     step size (reduces to fedavg at server_lr=1)."""
     avg = fedavg(client_params, weights)
-    return {name: (g.float() + server_lr * (avg[name].float() - g.float())).to(g.dtype)
-            for name, g in global_params.items()}
+    return tree_map(lambda g, a: (g.float() + server_lr * (a.float() - g.float())
+                                  ).to(g.dtype), global_params, avg)

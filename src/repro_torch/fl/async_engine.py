@@ -45,10 +45,14 @@ relative to the model version the wave trained from, and the buffer merge
 takes ``FLConfig.aggregator``'s robust kind.  The hierarchical engine
 (:class:`repro_torch.fl.topology.HierarchicalAsyncEngine`) overrides
 ``_dispatch``, ``_fill_need``, ``_fill_unit_of``, ``_ready`` and
-``_aggregate``.
+``_aggregate`` (and ``_merge_metrics``, its per-merge gauges).
 
-Not here, unlike the reference: the observability feeds (spans, metrics,
-structured log events) come with the observability slice.
+Observability (``FLConfig.observe``): the loop's ``ready_check``,
+``aggregate``, ``dispatch`` and ``events`` spans carry the virtual clock
+beside host wall time; each merge feeds the ``staleness`` histogram and the
+per-merge gauges and flushes one round record; ``events_per_window`` counts
+each clock jump's events; a stall or the runaway backstop is logged as an
+``async-stall`` / ``async-backstop`` event before it raises.
 """
 from __future__ import annotations
 
@@ -270,9 +274,17 @@ class AsyncRoundEngine:
         self._energy_since_agg = 0.0
         self._failed_since_agg: List[int] = []
         self._last_observe = (None, None, None)   # (ctx, probe_ids, states)
+        # observability: the server's recorder and logger (the no-op
+        # singleton unless FLConfig.observe opted in; every feed is RNG-free)
+        self.obs = server.obs
+        self.log = server.log
         self._events_since_merge = 0
         self._trans_since_merge = 0
         self._host_last = time.perf_counter()
+
+    def _vclock(self) -> float:
+        """Virtual-time source for spans (recorded beside host wall)."""
+        return self.now
 
     # ------------------------------------------------------------------
     # scenario clock
@@ -620,6 +632,7 @@ class AsyncRoundEngine:
         weights = [float(srv.data_sizes[j.cid]) for j in take]
         srv.telemetry.observe_staleness(
             np.array([j.cid for j in take], dtype=np.int64), lags)
+        self.obs.metrics.observe("staleness", lags)
         srv.global_params = buffered_aggregate(
             srv.global_params, [j.params for j in take], weights, lags,
             kind=cfg.staleness, a=cfg.staleness_a, b=cfg.staleness_b,
@@ -673,56 +686,98 @@ class AsyncRoundEngine:
         return (100_000 + 10 * self.srv.cfg.n_devices
                 + 1000 * self.buffer_size + 10 * self._trans_since_merge)
 
-    def _stall(self, message: str, done: int, aggregations: int) -> None:
-        raise AsyncStallError(
-            message, t_virtual_s=self.now, jobs_in_flight=len(self.jobs),
-            buffer_fill=len(self.buffer),
-            events_since_merge=self._events_since_merge,
-            transitions_since_merge=self._trans_since_merge,
-            aggregations_done=done, aggregations_target=aggregations)
+    def _flush_aggregation(self, res, verbose: bool) -> None:
+        """Per-aggregation reporting: stamp host wall-time on the result,
+        emit the structured round log line, and (when observing) flush the
+        metrics window into one JSONL round record.  Pure recording: no RNG,
+        no engine state beyond the host-time bookkeeping."""
+        t = time.perf_counter()
+        res.host_time_s = t - self._host_last
+        self._host_last = t
+        self.log.log("aggregation", force=verbose, policy=self.policy.name,
+                     agg=res.round, acc=res.acc, t_virtual_s=res.cum_time,
+                     energy_j=res.cum_energy, lag=res.mean_staleness,
+                     pending=res.n_pending)
+        obs = self.obs
+        if not obs.enabled:
+            return
+        m = obs.metrics
+        m.gauge("devices_online", res.n_available)
+        m.gauge("buffer_fill", len(self.buffer))
+        m.gauge("jobs_in_flight", len(self.jobs))
+        m.gauge("upload_slots_used", self._slots_used())
+        m.count("adversaries_merged", len(res.adversaries))
+        m.count("dropouts", len(res.failed))
+        for tier, lag in res.tier_staleness.items():
+            m.gauge(f"tier_lag.{tier}", lag)
+        self._merge_metrics(m)
+        obs.flush_round(round=res.round, mode="async",
+                        host_time_s=res.host_time_s, executor=res.executor,
+                        virtual_time_s=self.now, r_t=res.r_t, acc=res.acc)
+
+    def _merge_metrics(self, m) -> None:
+        """Subclass hook: extra per-merge gauges (hierarchical buffers)."""
+
+    def _stall(self, kind: str, message: str, done: int,
+               aggregations: int) -> None:
+        """Emit the stall diagnostics as a structured event through the
+        recorder and logger, then raise :class:`AsyncStallError`."""
+        fields = dict(t_virtual_s=self.now, jobs_in_flight=len(self.jobs),
+                      buffer_fill=len(self.buffer),
+                      events_since_merge=self._events_since_merge,
+                      transitions_since_merge=self._trans_since_merge,
+                      aggregations_done=done,
+                      aggregations_target=aggregations)
+        self.log.error(kind, **fields)
+        raise AsyncStallError(message, **fields)
 
     def run(self, aggregations: int, verbose: bool = False):
         """Drive the event loop until ``aggregations`` buffer merges have
         been applied; returns the per-aggregation history slice."""
-        srv = self.srv
+        srv, obs = self.srv, self.obs
         start = len(srv.history)
         done = 0
         self._host_last = time.perf_counter()
         while True:
             # 1. drain full buffers (a merge may free the model for the next
             #    wave, so this precedes dispatch)
-            while done < aggregations and self._ready():
-                res = self._aggregate()
+            while done < aggregations:
+                with obs.span("ready_check", clock=self._vclock):
+                    ready = self._ready()
+                if not ready:
+                    break
+                with obs.span("aggregate", clock=self._vclock):
+                    res = self._aggregate()
                 done += 1
                 self._events_since_merge = 0
                 self._trans_since_merge = 0
-                t = time.perf_counter()
-                res.host_time_s = t - self._host_last
-                self._host_last = t
-                if verbose:
-                    print(f"[repro_torch.fl] aggregation policy="
-                          f"{self.policy.name} agg={res.round} acc={res.acc:.4f} "
-                          f"t_virtual_s={res.cum_time:.1f} "
-                          f"energy_j={res.cum_energy:.1f} "
-                          f"lag={res.mean_staleness:.2f} pending={res.n_pending} "
-                          f"host_s={res.host_time_s:.3f}")
+                self._flush_aggregation(res, verbose)
             if done >= aggregations:
                 break
             # 2. fill free concurrency slots (loop back: there may be several
             #    waves' worth of idle devices)
-            if self._dispatch():
+            with obs.span("dispatch", clock=self._vclock):
+                dispatched = self._dispatch()
+            if dispatched:
                 continue
             # 3. otherwise jump the clock to the next event window
-            if not self._step():
+            events_before = self._events_since_merge
+            with obs.span("events", clock=self._vclock):
+                stepped = self._step()
+            if not stepped:
                 self._stall(
+                    "async-stall",
                     "async engine stalled: no running jobs, no dispatchable "
                     "devices and no future availability transition "
                     f"(t={self.now:.1f}s, {len(self.jobs)} paused jobs, "
                     f"{self._events_since_merge} events and "
                     f"{self._trans_since_merge} transitions since the last "
                     "merge)", done, aggregations)
+            obs.metrics.observe("events_per_window",
+                                self._events_since_merge - events_before)
             if self._events_since_merge > self._stall_limit():
                 self._stall(
+                    "async-backstop",
                     f"async engine exceeded {self._stall_limit()} events "
                     "without an aggregation "
                     f"({self._events_since_merge} events and "

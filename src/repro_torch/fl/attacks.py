@@ -16,8 +16,8 @@ The delta arithmetic runs in fp32 on the params' device.
 
 Concrete attacks: :class:`SignFlip` (boosted update reversal),
 :class:`ScaledUpdate` (model-replacement boosting), :class:`GaussianNoise`
-(additive parameter noise, drawn leaf by leaf in sorted-name order, the
-reference's leaf order) and :class:`LabelSkewDrift` (the classifier-head
+(additive parameter noise, drawn leaf by leaf in the reference's leaf
+order: dict keys sorted, recursively) and :class:`LabelSkewDrift` (the classifier-head
 update rolled along the label axis on the round clock).  Defenses live in
 :mod:`repro_torch.fl.aggregation`.
 """
@@ -28,6 +28,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.fl._tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, torch.Tensor]
 
@@ -88,11 +90,10 @@ class AttackModel:
 def _map_delta(params: Params, global_params: Params,
                fn: Callable[[torch.Tensor], torch.Tensor]) -> Params:
     """p -> g + fn(p - g) per leaf, in fp32, keeping each leaf's dtype."""
-    out = {}
-    for name, p in params.items():
-        g32 = global_params[name].float()
-        out[name] = (g32 + fn(p.float() - g32)).to(p.dtype)
-    return out
+    def one(p, g):
+        g32 = g.float()
+        return (g32 + fn(p.float() - g32)).to(p.dtype)
+    return tree_map(one, params, global_params)
 
 
 @dataclass(frozen=True)
@@ -119,19 +120,18 @@ class ScaledUpdate(AttackModel):
 class GaussianNoise(AttackModel):
     """Additive parameter noise: upload ``p + sigma * z``, ``z`` standard
     normal from :func:`attack_rng` keyed by ``(seed, round, cid)``, drawn
-    leaf by leaf in sorted-name order (the reference's leaf order)."""
+    leaf by leaf in the reference's leaf order (keys sorted, recursively)."""
 
     sigma: float = 1.0
 
     def corrupt(self, params, global_params, *, cid, seed, round_idx):
         rng = attack_rng(seed, round_idx, cid)
-        noisy = {}
-        for name in sorted(params):
-            p = params[name]
+
+        def one(p):
             z = rng.standard_normal(tuple(p.shape)).astype(np.float32)
-            noisy[name] = (p.float() + self.sigma
-                           * torch.as_tensor(z, device=p.device)).to(p.dtype)
-        return {name: noisy[name] for name in params}
+            return (p.float() + self.sigma
+                    * torch.as_tensor(z, device=p.device)).to(p.dtype)
+        return tree_unflatten(params, [one(p) for p in tree_leaves(params)])
 
 
 @dataclass(frozen=True)
@@ -139,8 +139,8 @@ class LabelSkewDrift(AttackModel):
     """Per-round label-distribution rotation on the round clock: the update
     of every leaf whose trailing dimension is the label axis is rolled by
     ``(round // period) % C`` classes.  The label axis is the trailing
-    dimension of the last leaf in sorted-name order (the reference's
-    structurally-last leaf)."""
+    dimension of the last leaf in the reference's leaf order (its
+    structurally-last leaf: an MLP's ``w3``, an LM's ``lm_head``)."""
 
     period: int = 1
 
@@ -153,8 +153,8 @@ class LabelSkewDrift(AttackModel):
         return (int(round_idx) // self.period) % max(int(n_classes), 1)
 
     def corrupt(self, params, global_params, *, cid, seed, round_idx):
-        names = sorted(params)
-        n_classes = int(params[names[-1]].shape[-1]) if names else 0
+        leaves = tree_leaves(params)
+        n_classes = int(leaves[-1].shape[-1]) if leaves else 0
         k = self.shift(round_idx, n_classes)
         if k == 0:
             return params

@@ -18,6 +18,8 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.fl._tree import tree_device, tree_iter, tree_leaves, tree_map, tree_unflatten
+
 Params = Dict[str, torch.Tensor]
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -48,26 +50,56 @@ def _pad_bucket(x: torch.Tensor, y: torch.Tensor
     return xpad, ypad, mask
 
 
+def _prox_sq(p: Params, anchor: Params) -> torch.Tensor:
+    """FedProx's squared distance to the anchor, summed in fp32 leaf by leaf
+    in storage order."""
+    return sum(tree_iter(tree_map(
+        lambda a, b: torch.sum(torch.square(a.float() - b.float())), p, anchor)))
+
+
+def _sgd_leaf(lr: float):
+    """One SGD update of a leaf in fp32, cast back to the leaf's dtype."""
+    return lambda a, g: (a.float() - lr * g.float()).to(a.dtype)
+
+
+# stacked leaves with more elements than this step client by client, so the
+# fp32 temporaries of one update hold one client's leaf, not the cohort's
+_STACKED_STEP_CHUNK = 1 << 26
+
+
+def _sgd_stacked(lr: float):
+    """:func:`_sgd_leaf` over a leaf with a leading client axis.  A large
+    leaf (an LM's embedding at full width) is updated one client at a time
+    into one contiguous output: the same value per entry, while the fp32
+    temporaries shrink by the cohort size."""
+    step = _sgd_leaf(lr)
+
+    def one(a, g):
+        if a.numel() <= _STACKED_STEP_CHUNK:
+            return step(a, g)
+        out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+        for j in range(a.shape[0]):
+            out[j] = step(a[j], g[j])
+        return out
+    return one
+
+
 def _sgd_epoch(task, params: Params, p_global: Params, x: torch.Tensor,
                y: torch.Tensor, mask: torch.Tensor, *, lr: float,
                batch_size: int, n_batches: int, prox_mu: float
                ) -> Tuple[Params, torch.Tensor]:
-    """One local epoch = n_batches SGD steps; returns (params, mean loss)."""
-    names = list(params)
+    """One local epoch = n_batches SGD steps over a params tree; returns
+    (params, mean loss).  Each leaf steps in fp32 and keeps its dtype."""
     losses = []
     for b in range(n_batches):
         sl = slice(b * batch_size, (b + 1) * batch_size)
-        leaves = [params[k].detach().requires_grad_(True) for k in names]
-        p = dict(zip(names, leaves))
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss = task.loss(p, {"x": x[sl], "y": y[sl], "mask": mask[sl]})
         if prox_mu > 0.0:
-            sq = sum(torch.sum(torch.square(p[k].float() - p_global[k].float()))
-                     for k in names)
-            loss = loss + 0.5 * prox_mu * sq
-        grads = torch.autograd.grad(loss, leaves)
+            loss = loss + 0.5 * prox_mu * _prox_sq(p, p_global)
+        grads = tree_unflatten(p, torch.autograd.grad(loss, tree_leaves(p)))
         with torch.no_grad():
-            params = {k: (leaf.float() - lr * g.float()).to(leaf.dtype)
-                      for k, leaf, g in zip(names, leaves, grads)}
+            params = tree_map(_sgd_leaf(lr), p, grads)
         losses.append(loss.detach())
     return params, torch.stack(losses).mean()
 
@@ -86,7 +118,7 @@ def local_train(
 ) -> Tuple[Params, np.ndarray]:
     """Run ``epochs`` local epochs on the params' device.  Returns (params,
     per-epoch mean losses); losses[0] is the probing loss FedRank reports."""
-    device = next(iter(params.values())).device
+    device = tree_device(params)
     x = torch.as_tensor(x, device=device)
     y = torch.as_tensor(y, device=device)
     rng = np.random.default_rng(seed)
@@ -148,9 +180,7 @@ def make_parallel_local_train(task, *, batch_size: int, n_batches: int,
     def loss_fn(p, p_init, xb, yb, mb):
         loss = task.loss(p, {"x": xb, "y": yb, "mask": mb})
         if prox_mu > 0.0:
-            sq = sum(torch.sum(torch.square(p[k].float() - p_init[k].float()))
-                     for k in p)
-            loss = loss + 0.5 * prox_mu * sq
+            loss = loss + 0.5 * prox_mu * _prox_sq(p, p_init)
         return loss
 
     step = torch.func.vmap(torch.func.grad_and_value(loss_fn))
@@ -161,8 +191,8 @@ def make_parallel_local_train(task, *, batch_size: int, n_batches: int,
                  ) -> Tuple[Params, torch.Tensor]:
         k = xs.shape[0]
         if not stacked_params:
-            p_init = {n: a.unsqueeze(0).expand((k,) + tuple(a.shape))
-                      for n, a in p_init.items()}
+            p_init = tree_map(lambda a: a.unsqueeze(0).expand((k,) + tuple(a.shape)),
+                              p_init)
         if perms is None:
             perms = torch.arange(take, device=xs.device).expand(k, epochs, take)
         params = p_init
@@ -178,8 +208,7 @@ def make_parallel_local_train(task, *, batch_size: int, n_batches: int,
             for b in range(n_batches):
                 sl = slice(b * batch_size, (b + 1) * batch_size)
                 grads, loss = step(params, p_init, xe[:, sl], ye[:, sl], me[:, sl])
-                params = {n: (params[n].float() - lr * grads[n].float()
-                              ).to(params[n].dtype) for n in params}
+                params = tree_map(_sgd_stacked(lr), params, grads)
                 losses.append(loss)
             ep_losses.append(torch.stack(losses, dim=1).mean(dim=1))
         if not ep_losses:

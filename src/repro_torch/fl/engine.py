@@ -28,12 +28,14 @@ from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence
 import numpy as np
 import torch
 
+from repro_torch.fl._tree import tree_device, tree_index, tree_stack
 from repro_torch.fl.client import (
     _bucket_geometry,
     _pad_bucket,
     local_train,
     make_parallel_local_train,
 )
+from repro_torch.obs.profiling import timed_call
 
 Params = Any
 
@@ -193,7 +195,7 @@ class VmappedExecutor:
                     lr, batch_size, prox_mu):
         _, bs, nb = _bucket_geometry(cap, batch_size)
         take = nb * bs
-        device = next(iter(global_params.values())).device
+        device = tree_device(global_params)
         xs, ys, masks, perms = [], [], [], []
         for req in reqs:
             xpad, ypad, mask = _pad_bucket(torch.as_tensor(req.x, device=device),
@@ -208,21 +210,24 @@ class VmappedExecutor:
         if stacked_init:
             inits = [req.init_params if req.init_params is not None
                      else global_params for req in reqs]
-            p0 = {name: torch.stack([p[name] for p in inits])
-                  for name in global_params}
+            p0 = tree_stack(inits)
         else:
             # shared start (probe stage, plain rounds): the one dict is
             # broadcast inside the step, no K-fold copy
             p0 = global_params
         step = _bucket_step(task, bs, nb, epochs, float(prox_mu), stacked_init)
-        stacked, ep_losses = step(p0, torch.stack(xs), torch.stack(ys),
-                                  torch.stack(masks), float(lr),
-                                  torch.as_tensor(np.stack(perms), device=device))
+        # timed_call is a passthrough unless a profiler is active
+        # (repro_torch.obs.profiling); then the bucket step is fenced and
+        # charged per (cohort size, epochs) geometry
+        stacked, ep_losses = timed_call(
+            f"vmapped.bucket_step[k={len(reqs)},ep={epochs}]",
+            step, p0, torch.stack(xs), torch.stack(ys), torch.stack(masks),
+            float(lr), torch.as_tensor(np.stack(perms), device=device))
         # one device->host copy of the bucket's losses; each client's params
         # are a view of the stacked result (slicing launches nothing)
         ep_losses = ep_losses.double().cpu().numpy()
         for j, req in enumerate(reqs):
-            out.params[req.client_id] = {name: a[j] for name, a in stacked.items()}
+            out.params[req.client_id] = tree_index(stacked, j)
             out.losses[req.client_id] = ep_losses[j]
 
 

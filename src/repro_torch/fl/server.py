@@ -36,8 +36,11 @@ else the scenario's) corrupts adversarial uploads after training and before
 aggregation, and ``FLConfig.aggregator`` picks the merge rule at every merge
 site (:mod:`repro_torch.fl.aggregation`).
 
-Not in this package yet, and refused with ``NotImplementedError``: run
-observability (``FLConfig.observe``).
+``FLConfig.observe`` opts a run into structured observability
+(:mod:`repro_torch.obs`): spans per round stage, per-round metrics, fenced
+executor and kernel op timings, and JSONL run records.  Off (the default),
+the recorder is the shared no-op ``NULL_RECORDER``, which draws no random
+numbers and changes no result.
 """
 from __future__ import annotations
 
@@ -72,6 +75,8 @@ from repro_torch.fl.simulation import (
     static_estimates,
 )
 from repro_torch.fl.telemetry import DeviceTelemetry
+from repro_torch.obs import NULL_RECORDER, StructuredLogger, make_recorder
+from repro_torch.obs import profiling as _profiling
 
 Params = Dict[str, torch.Tensor]
 
@@ -145,18 +150,21 @@ class FLConfig:
     attack: Any = None            # AttackModel corrupting uploads after
     #                               training, before aggregation (None =>
     #                               the scenario's, if it declares one)
-    # --- refused until its slice is ported (NotImplementedError) ---
-    observe: Any = None           # run records: observability slice
+    observe: Any = None           # structured observability (repro_torch.obs):
+    #                               None/False = the no-op recorder (default;
+    #                               RNG-free, results unchanged), True =
+    #                               record spans/metrics in memory, a
+    #                               directory path = also write manifest.json
+    #                               + run.jsonl there, or a recorder instance
+    log_level: str = ""           # structured-log threshold (repro_torch.obs.log):
+    #                               debug | info | warning | error
+    #                               ("" => $REPRO_LOG_LEVEL => warning)
     seed: int = 0
 
 
-def _refuse_unported(cfg: FLConfig) -> None:
+def _check_mode(cfg: FLConfig) -> None:
     if cfg.mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {cfg.mode!r}; expected 'sync' or 'async'")
-    if cfg.observe not in (None, False):
-        raise NotImplementedError(
-            "FLConfig observe is not ported to repro_torch yet; it comes with "
-            "the observability slice (the JAX package repro has it)")
 
 
 @dataclass
@@ -276,7 +284,7 @@ class FLServer:
                  pool: Optional[DevicePool] = None,
                  executor: Optional[ClientExecutor] = None,
                  device: DeviceLike = None):
-        _refuse_unported(cfg)
+        _check_mode(cfg)
         if cfg.aggregator not in AGGREGATORS:
             raise ValueError(f"unknown aggregator {cfg.aggregator!r}; "
                              f"expected one of {AGGREGATORS}")
@@ -352,7 +360,14 @@ class FLServer:
         est_t, est_e = self._static_round_estimates()
         self.t_budget = cfg.t_budget or float(np.median(est_t))
         self.e_budget = cfg.e_budget or float(np.median(est_e)) * cfg.k_select
+        # observability: created after the init-time evaluate so round 0's
+        # record starts clean; an enabled recorder is also the destination of
+        # the kernel and executor op timings
+        self.obs = make_recorder(cfg.observe, cfg=cfg, scenario=cfg.scenario)
+        self.log = StructuredLogger(level=cfg.log_level or None, recorder=self.obs)
         self._executor_label = executor_label(self.executor)
+        if self.obs.enabled:
+            _profiling.set_profiler(self.obs)
 
     # ------------------------------------------------------------------
     @property
@@ -378,13 +393,15 @@ class FLServer:
         bs = 512
         n = len(self._test_y)
         accs, losses, sizes = [], [], []
-        for i in range(0, n, bs):
-            b = {"x": self._test_x[i:i + bs], "y": self._test_y[i:i + bs]}
-            accs.append(self.task.accuracy(self.global_params, b))
-            losses.append(self.task.loss(self.global_params, b))
-            sizes.append(len(b["y"]))
-        accs, losses = torch.stack([torch.stack(accs),
-                                    torch.stack(losses)]).cpu().tolist()
+        # getattr: __init__ evaluates once before the recorder exists
+        with getattr(self, "obs", NULL_RECORDER).span("evaluate"):
+            for i in range(0, n, bs):
+                b = {"x": self._test_x[i:i + bs], "y": self._test_y[i:i + bs]}
+                accs.append(self.task.accuracy(self.global_params, b))
+                losses.append(self.task.loss(self.global_params, b))
+                sizes.append(len(b["y"]))
+            accs, losses = torch.stack([torch.stack(accs),
+                                        torch.stack(losses)]).cpu().tolist()
         return (sum(a * s for a, s in zip(accs, sizes)) / n,
                 sum(l * s for l, s in zip(losses, sizes)) / n)
 
@@ -413,9 +430,20 @@ class FLServer:
         return self._train_x[idx], self._train_y[idx]
 
     def _execute(self, requests: Sequence[ClientRequest]):
-        return self.executor.run(self.task, self.global_params, requests,
-                                 lr=self.cfg.lr, batch_size=self.cfg.local_batch,
-                                 prox_mu=self.cfg.prox_mu)
+        if not self.obs.enabled:
+            return self.executor.run(self.task, self.global_params, requests,
+                                     lr=self.cfg.lr, batch_size=self.cfg.local_batch,
+                                     prox_mu=self.cfg.prox_mu)
+        # profiled path: fence the result so device work is charged to this
+        # executor call rather than the next host sync
+        t0 = time.perf_counter()
+        out = self.executor.run(self.task, self.global_params, requests,
+                                lr=self.cfg.lr, batch_size=self.cfg.local_batch,
+                                prox_mu=self.cfg.prox_mu)
+        _profiling.fence(out.params)
+        self.obs.record_op(f"executor.{self._executor_label}",
+                           time.perf_counter() - t0)
+        return out
 
     def _check_available(self, ctx: RoundContext, ids: np.ndarray,
                          policy: SelectionPolicy, stage: str) -> None:
@@ -433,68 +461,76 @@ class FLServer:
 
             return run_topology_round(self, policy)
         cfg = self.cfg
+        obs = self.obs
         t_host0 = time.perf_counter()
         self.pool.advance_round()
         ctx = self._ctx()
         self.loss_age += 1
 
-        plan = build_round_plan(policy, ctx, cfg.l_ep)
+        with obs.span("plan"):
+            plan = build_round_plan(policy, ctx, cfg.l_ep)
         probe_ids = np.asarray(plan.probe_ids, dtype=np.int64)
         probe_states = None
         probe_params: Dict[int, Params] = {}
 
         # ---- probe stage ---------------------------------------------
         if plan.has_probe:
-            self._check_available(ctx, probe_ids, policy, "probed")
-            reqs = build_requests(probe_ids, self._client_data,
-                                  plan.probe_epochs, seed=cfg.seed,
-                                  round_idx=ctx.round, stride=PROBE_SEED_STRIDE)
-            probed = self._execute(reqs)
-            probe_params = probed.params
-            probe_losses = np.array([probed.losses[int(i)][-1] for i in probe_ids])
-            self.last_loss[probe_ids] = probe_losses
-            self.loss_age[probe_ids] = 0
-            probe_states = ctx.probe_states(probe_ids, probe_losses)
+            with obs.span("probe"):
+                self._check_available(ctx, probe_ids, policy, "probed")
+                reqs = build_requests(probe_ids, self._client_data,
+                                      plan.probe_epochs, seed=cfg.seed,
+                                      round_idx=ctx.round,
+                                      stride=PROBE_SEED_STRIDE)
+                probed = self._execute(reqs)
+                probe_params = probed.params
+                probe_losses = np.array([probed.losses[int(i)][-1]
+                                         for i in probe_ids])
+                self.last_loss[probe_ids] = probe_losses
+                self.loss_age[probe_ids] = 0
+                probe_states = ctx.probe_states(probe_ids, probe_losses)
 
         # ---- select (+ the scenario failure draw) --------------------
-        selected = np.asarray(policy.select(
-            ctx, probe_ids if plan.has_probe else None, probe_states),
-            dtype=np.int64)
-        self._check_available(ctx, selected, policy, "selected")
-        if plan.has_probe:
-            missing = [int(i) for i in selected if int(i) not in probe_params]
-            if missing:
-                raise ValueError(
-                    f"policy {policy.name!r} selected devices {missing} "
-                    "outside the round's probe set")
-        # drawn before execution: who drops or misses the deadline is
-        # simulated, so the server never runs (or aggregates) their work
-        completion_s = (ctx.sys.t_comm[selected]
-                        + ctx.sys.t_comp[selected] * plan.completion_epochs)
-        outcome = self.pool.draw_failures(self.rng, selected, completion_s)
-        lost = set(int(i) for i in outcome.lost)
-        survivors = np.asarray([i for i in selected if int(i) not in lost],
-                               dtype=np.int64)
+        with obs.span("select"):
+            selected = np.asarray(policy.select(
+                ctx, probe_ids if plan.has_probe else None, probe_states),
+                dtype=np.int64)
+            self._check_available(ctx, selected, policy, "selected")
+            if plan.has_probe:
+                missing = [int(i) for i in selected if int(i) not in probe_params]
+                if missing:
+                    raise ValueError(
+                        f"policy {policy.name!r} selected devices {missing} "
+                        "outside the round's probe set")
+            # drawn before execution: who drops or misses the deadline is
+            # simulated, so the server never runs (or aggregates) their work
+            completion_s = (ctx.sys.t_comm[selected]
+                            + ctx.sys.t_comp[selected] * plan.completion_epochs)
+            outcome = self.pool.draw_failures(self.rng, selected, completion_s)
+            lost = set(int(i) for i in outcome.lost)
+            survivors = np.asarray([i for i in selected if int(i) not in lost],
+                                   dtype=np.int64)
 
         # ---- completion stage (survivors only) -----------------------
-        if plan.completion_epochs > 0 and len(survivors):
-            reqs = build_requests(survivors, self._client_data,
-                                  plan.completion_epochs, seed=cfg.seed,
-                                  round_idx=ctx.round,
-                                  stride=COMPLETE_SEED_STRIDE,
-                                  init_params=probe_params)
-            completed = self._execute(reqs)
-            client_results: Dict[int, Params] = dict(completed.params)
-            # losses from survivors only: a lost device never uploaded
-            for i in survivors:
-                losses = completed.losses[int(i)]
-                if len(losses):
-                    self.last_loss[i] = losses[-1]
-                    self.loss_age[i] = 0
-        else:
-            # no completion stage (l_ep == probe_epochs): probed params final
-            client_results = {int(i): probe_params[int(i)] for i in survivors
-                              if int(i) in probe_params}
+        with obs.span("complete"):
+            if plan.completion_epochs > 0 and len(survivors):
+                reqs = build_requests(survivors, self._client_data,
+                                      plan.completion_epochs, seed=cfg.seed,
+                                      round_idx=ctx.round,
+                                      stride=COMPLETE_SEED_STRIDE,
+                                      init_params=probe_params)
+                completed = self._execute(reqs)
+                client_results: Dict[int, Params] = dict(completed.params)
+                # losses from survivors only: a lost device never uploaded
+                for i in survivors:
+                    losses = completed.losses[int(i)]
+                    if len(losses):
+                        self.last_loss[i] = losses[-1]
+                        self.loss_age[i] = 0
+            else:
+                # no completion stage (l_ep == probe_epochs): probed params
+                # final
+                client_results = {int(i): probe_params[int(i)] for i in survivors
+                                  if int(i) in probe_params}
 
         # stragglers' cost is sunk up to the round deadline; Bernoulli
         # failures are charged in full
@@ -508,39 +544,42 @@ class FLServer:
         # ---- attack injection (after training, before aggregation) ---
         # adversarial survivors upload corrupted params, relative to the
         # dispatch-time global model, from the attack's own RNG stream
-        adversaries = _empty_ids()
-        if self.attack is not None and len(selected):
-            adv = self.attack.draw(cfg.n_devices, cfg.seed, ctx.round, selected)
-            adversaries = selected[adv]
-            for i in adversaries:
-                if int(i) in client_results:
-                    client_results[int(i)] = self.attack.corrupt(
-                        client_results[int(i)], self.global_params,
-                        cid=int(i), seed=cfg.seed, round_idx=ctx.round)
+        with obs.span("aggregate"):
+            adversaries = _empty_ids()
+            if self.attack is not None and len(selected):
+                adv = self.attack.draw(cfg.n_devices, cfg.seed, ctx.round,
+                                       selected)
+                adversaries = selected[adv]
+                for i in adversaries:
+                    if int(i) in client_results:
+                        client_results[int(i)] = self.attack.corrupt(
+                            client_results[int(i)], self.global_params,
+                            cid=int(i), seed=cfg.seed, round_idx=ctx.round)
 
-        if client_results:
-            weights = [self.data_sizes[i] for i in client_results]
-            self.global_params = robust_aggregate(
-                list(client_results.values()), weights, kind=cfg.aggregator,
-                trim=cfg.agg_trim, f=cfg.agg_f, m_select=cfg.agg_m or None)
+            if client_results:
+                weights = [self.data_sizes[i] for i in client_results]
+                self.global_params = robust_aggregate(
+                    list(client_results.values()), weights, kind=cfg.aggregator,
+                    trim=cfg.agg_trim, f=cfg.agg_f, m_select=cfg.agg_m or None)
 
         # ---- telemetry (deterministic: recording never perturbs a run) ---
-        tel = self.telemetry
-        tel.observe_availability(ctx.available)
-        tel.observe_selection(selected)
-        tel.observe_dropouts(outcome.failed)
-        tel.observe_stragglers(outcome.stragglers)
-        if len(survivors):
-            # probe BARRIER (selection waits on the whole probe cohort) +
-            # comms + completion compute
-            barrier = (float(ctx.sys.t_comp[probe_ids].max())
-                       * plan.probe_epochs if plan.has_probe else 0.0)
-            dur = (barrier + ctx.sys.t_comm[survivors]
-                   + ctx.sys.t_comp[survivors] * plan.completion_epochs)
-            tel.observe_completions(survivors, dur)
-            # synchronous merges land immediately: version lag 0
-            tel.observe_staleness(survivors, np.zeros(len(survivors)))
-        tel.observe_cadence(r_t)
+        with obs.span("telemetry"):
+            tel = self.telemetry
+            tel.observe_availability(ctx.available)
+            tel.observe_selection(selected)
+            tel.observe_dropouts(outcome.failed)
+            tel.observe_stragglers(outcome.stragglers)
+            if len(survivors):
+                # probe BARRIER (selection waits on the whole probe cohort)
+                # + comms + completion compute
+                barrier = (float(ctx.sys.t_comp[probe_ids].max())
+                           * plan.probe_epochs if plan.has_probe else 0.0)
+                dur = (barrier + ctx.sys.t_comm[survivors]
+                       + ctx.sys.t_comp[survivors] * plan.completion_epochs)
+                tel.observe_completions(survivors, dur)
+                # synchronous merges land immediately: version lag 0
+                tel.observe_staleness(survivors, np.zeros(len(survivors)))
+            tel.observe_cadence(r_t)
 
         acc, test_loss = self._evaluate()
         d_acc = acc - self._last_acc
@@ -557,9 +596,22 @@ class FLServer:
             adversaries=adversaries, n_available=int(ctx.available.sum()),
             executor=self._executor_label)
         self.history.append(result)
-        policy.observe(ctx, result, probe_ids if plan.has_probe else None,
-                       probe_states)
+        with obs.span("observe"):
+            policy.observe(ctx, result, probe_ids if plan.has_probe else None,
+                           probe_states)
         result.host_time_s = time.perf_counter() - t_host0
+        if obs.enabled:
+            m = obs.metrics
+            m.gauge("devices_online", result.n_available)
+            m.gauge("n_selected", len(selected))
+            m.count("failures", len(outcome.failed))
+            m.count("stragglers", len(outcome.stragglers))
+            m.count("adversaries_merged", len(adversaries))
+            obs.flush_round(round=result.round, mode="sync",
+                            host_time_s=result.host_time_s,
+                            executor=result.executor,
+                            virtual_time_s=result.cum_time, r_t=result.r_t,
+                            acc=result.acc)
         return result
 
     def run_async(self, policy: SelectionPolicy,
@@ -593,9 +645,8 @@ class FLServer:
             return self.run_async(policy, aggregations=rounds, verbose=verbose)
         for _ in range(rounds or self.cfg.rounds):
             res = self.run_round(policy)
-            if verbose:
-                print(f"[repro_torch.fl] round policy={policy.name} "
-                      f"round={res.round} acc={res.acc:.4f} r_t_s={res.r_t:.1f} "
-                      f"r_e_j={res.r_e:.1f} reward={res.reward:.4f} "
-                      f"host_s={res.host_time_s:.3f}")
+            self.log.log("round", force=verbose, policy=policy.name,
+                         round=res.round, acc=res.acc, r_t_s=res.r_t,
+                         r_e_j=res.r_e, reward=res.reward,
+                         host_s=res.host_time_s)
         return self.history

@@ -1,16 +1,19 @@
-"""Client-side training task: the classification MLP each FL client trains.
+"""Client-side training tasks: what each FL client trains.
 
 :class:`MLPTask` plays the role of LeNet5/ResNet18 in the paper's testbed on
-the synthetic feature datasets; :class:`ClientTask` is what the server and
-the executors need of a task.  The LM task comes with the LM-training slice.
+the synthetic feature datasets; :class:`LMTask` makes a zoo LM the global
+model (next-token loss on token sequences, 2-D labels); :class:`ClientTask`
+is what the server and the executors need of a task.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Protocol
+from typing import Any, Dict, Optional, Protocol
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import dense_init, softmax_xent
 
 Params = Dict[str, torch.Tensor]
@@ -75,3 +78,53 @@ class MLPTask:
         p = (self.dim * self.hidden + self.hidden ** 2
              + self.hidden * self.n_classes + 2 * self.hidden + self.n_classes)
         return 4.0 * p
+
+
+# ---------------------------------------------------------------------------
+
+
+class LMTask:
+    """Next-token LM on an architecture of the zoo (a reduced or a
+    full-width config).  Params are the LM's nested tree; a batch's ``x``
+    and ``y`` are (B, S) tokens and next tokens, and the executors' (B,)
+    sample mask becomes a per-token loss mask.  Training runs the plain
+    ``impl="naive"`` forward, as the reference's FL task does."""
+
+    def __init__(self, cfg: ModelConfig, seq_len: int = 64):
+        self.cfg = cfg
+        self.seq_len = seq_len
+
+    def init(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
+        """Fresh weights from a ``torch.Generator`` seeded with ``seed``
+        (:func:`repro_torch.models.transformer.init_params`)."""
+        return T.init_params(seed, self.cfg, device)
+
+    @staticmethod
+    def _seq_mask(mask: Optional[torch.Tensor], labels: torch.Tensor
+                  ) -> Optional[torch.Tensor]:
+        """Sample-level (B,) validity -> token-level (B, S) loss mask."""
+        if mask is None:
+            return None
+        return mask[:, None] * torch.ones_like(labels, dtype=torch.float32)
+
+    def loss(self, p, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        loss, _ = T.loss_fn(p, self.cfg, {
+            "tokens": batch["x"], "labels": batch["y"],
+            "loss_mask": self._seq_mask(batch.get("mask"), batch["y"]),
+            "frontend_embeds": batch.get("frontend_embeds"),
+        }, impl="naive")
+        return loss
+
+    def accuracy(self, p, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        logits, _ = T.forward(p, self.cfg, batch["x"], batch.get("frontend_embeds"))
+        hit = (logits.argmax(-1) == batch["y"].long()).float()
+        mask = self._seq_mask(batch.get("mask"), batch["y"])
+        if mask is None:
+            return hit.mean()
+        return (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    def flops_per_sample(self) -> float:
+        return 6.0 * self.cfg.param_count() * self.seq_len
+
+    def param_bytes(self) -> float:
+        return 2.0 * self.cfg.param_count()

@@ -355,6 +355,7 @@ def run_topology_round(srv, policy):
     from repro_torch.fl.server import RoundResult, paper_reward
 
     cfg, topo = srv.cfg, srv.topology
+    obs = srv.obs
     t_host0 = time.perf_counter()
     srv.pool.advance_round()
     base_ctx = srv._ctx()
@@ -364,19 +365,20 @@ def run_topology_round(srv, policy):
 
     # ---- per-region plans (probe draws in leaf order) ----------------
     regions: List[dict] = []
-    for r, name in enumerate(topo.leaves):
-        avail_r = base_ctx.available & (labels == r)
-        if budgets[r] <= 0 or not avail_r.any():
-            continue        # dark or unbudgeted region: skipped, no RNG
-        ctx_r = dataclasses.replace(base_ctx, k=int(budgets[r]),
-                                    available=avail_r,
-                                    region_id=r, region_name=name)
-        plan = build_round_plan(policy, ctx_r, cfg.l_ep)
-        regions.append({
-            "name": name, "ctx": ctx_r, "plan": plan,
-            "probe_ids": np.asarray(plan.probe_ids, dtype=np.int64),
-            "probe_states": None,
-        })
+    with obs.span("plan"):
+        for r, name in enumerate(topo.leaves):
+            avail_r = base_ctx.available & (labels == r)
+            if budgets[r] <= 0 or not avail_r.any():
+                continue        # dark or unbudgeted region: skipped, no RNG
+            ctx_r = dataclasses.replace(base_ctx, k=int(budgets[r]),
+                                        available=avail_r,
+                                        region_id=r, region_name=name)
+            plan = build_round_plan(policy, ctx_r, cfg.l_ep)
+            regions.append({
+                "name": name, "ctx": ctx_r, "plan": plan,
+                "probe_ids": np.asarray(plan.probe_ids, dtype=np.int64),
+                "probe_states": None,
+            })
 
     # ---- probe stage (one stacked executor call) ---------------------
     probing = [g for g in regions if g["plan"].has_probe]
@@ -384,70 +386,73 @@ def run_topology_round(srv, policy):
     for g in probing:
         srv._check_available(g["ctx"], g["probe_ids"], policy, "probed")
     if probing:
-        groups = [build_requests(g["probe_ids"], srv._client_data,
-                                 g["plan"].probe_epochs, seed=cfg.seed,
-                                 round_idx=base_ctx.round,
-                                 stride=PROBE_SEED_STRIDE)
-                  for g in probing]
-        probe_params, probe_losses = _execute_grouped(srv, groups,
-                                                      cfg.region_exec)
-        for g in probing:
-            pl = np.array([probe_losses[int(i)][-1]
-                           for i in g["probe_ids"]])
-            srv.last_loss[g["probe_ids"]] = pl
-            srv.loss_age[g["probe_ids"]] = 0
-            g["probe_states"] = g["ctx"].probe_states(g["probe_ids"], pl)
+        with obs.span("probe"):
+            groups = [build_requests(g["probe_ids"], srv._client_data,
+                                     g["plan"].probe_epochs, seed=cfg.seed,
+                                     round_idx=base_ctx.round,
+                                     stride=PROBE_SEED_STRIDE)
+                      for g in probing]
+            probe_params, probe_losses = _execute_grouped(srv, groups,
+                                                          cfg.region_exec)
+            for g in probing:
+                pl = np.array([probe_losses[int(i)][-1]
+                               for i in g["probe_ids"]])
+                srv.last_loss[g["probe_ids"]] = pl
+                srv.loss_age[g["probe_ids"]] = 0
+                g["probe_states"] = g["ctx"].probe_states(g["probe_ids"], pl)
 
     # ---- select + failure draw (leaf order, one draw per region) -----
-    for g in regions:
-        ctx_r, plan = g["ctx"], g["plan"]
-        selected = np.asarray(policy.select(
-            ctx_r, g["probe_ids"] if plan.has_probe else None,
-            g["probe_states"]), dtype=np.int64)
-        if len(selected) > ctx_r.k:
-            raise ValueError(
-                f"policy {policy.name!r} selected {len(selected)} devices in "
-                f"region {g['name']!r}, exceeding its budget k_r={ctx_r.k}")
-        srv._check_available(ctx_r, selected, policy, "selected")
-        if plan.has_probe:
-            missing = [int(i) for i in selected
-                       if int(i) not in probe_params]
-            if missing:
+    with obs.span("select"):
+        for g in regions:
+            ctx_r, plan = g["ctx"], g["plan"]
+            selected = np.asarray(policy.select(
+                ctx_r, g["probe_ids"] if plan.has_probe else None,
+                g["probe_states"]), dtype=np.int64)
+            if len(selected) > ctx_r.k:
                 raise ValueError(
-                    f"policy {policy.name!r} selected devices {missing} "
-                    "outside the round's probe set")
-        completion_s = (ctx_r.sys.t_comm[selected]
-                        + ctx_r.sys.t_comp[selected] * plan.completion_epochs)
-        outcome = srv.pool.draw_failures(srv.rng, selected, completion_s)
-        lost = set(int(i) for i in outcome.lost)
-        g["selected"] = selected
-        g["outcome"] = outcome
-        g["survivors"] = np.asarray(
-            [i for i in selected if int(i) not in lost], dtype=np.int64)
+                    f"policy {policy.name!r} selected {len(selected)} devices in "
+                    f"region {g['name']!r}, exceeding its budget k_r={ctx_r.k}")
+            srv._check_available(ctx_r, selected, policy, "selected")
+            if plan.has_probe:
+                missing = [int(i) for i in selected
+                           if int(i) not in probe_params]
+                if missing:
+                    raise ValueError(
+                        f"policy {policy.name!r} selected devices {missing} "
+                        "outside the round's probe set")
+            completion_s = (ctx_r.sys.t_comm[selected]
+                            + ctx_r.sys.t_comp[selected] * plan.completion_epochs)
+            outcome = srv.pool.draw_failures(srv.rng, selected, completion_s)
+            lost = set(int(i) for i in outcome.lost)
+            g["selected"] = selected
+            g["outcome"] = outcome
+            g["survivors"] = np.asarray(
+                [i for i in selected if int(i) not in lost], dtype=np.int64)
 
     # ---- completion stage (one stacked executor call) ----------------
-    groups = [build_requests(g["survivors"], srv._client_data,
-                             g["plan"].completion_epochs, seed=cfg.seed,
-                             round_idx=base_ctx.round,
-                             stride=COMPLETE_SEED_STRIDE,
-                             init_params=probe_params)
-              if g["plan"].completion_epochs > 0 and len(g["survivors"])
-              else [] for g in regions]
-    comp_params, comp_losses = _execute_grouped(srv, groups,
-                                                cfg.region_exec)
-    for g in regions:
-        if g["plan"].completion_epochs > 0 and len(g["survivors"]):
-            g["client_results"] = {int(i): comp_params[int(i)]
-                                   for i in g["survivors"]}
-            for i in g["survivors"]:
-                ls = comp_losses[int(i)]
-                if len(ls):
-                    srv.last_loss[i] = ls[-1]
-                    srv.loss_age[i] = 0
-        else:
-            g["client_results"] = {int(i): probe_params[int(i)]
-                                   for i in g["survivors"]
-                                   if int(i) in probe_params}
+    with obs.span("complete"):
+        groups = [build_requests(g["survivors"], srv._client_data,
+                                 g["plan"].completion_epochs, seed=cfg.seed,
+                                 round_idx=base_ctx.round,
+                                 stride=COMPLETE_SEED_STRIDE,
+                                 init_params=probe_params)
+                  if g["plan"].completion_epochs > 0 and len(g["survivors"])
+                  else [] for g in regions]
+        comp_params, comp_losses = _execute_grouped(srv, groups,
+                                                    cfg.region_exec)
+        for g in regions:
+            if g["plan"].completion_epochs > 0 and len(g["survivors"]):
+                g["client_results"] = {int(i): comp_params[int(i)]
+                                       for i in g["survivors"]}
+                for i in g["survivors"]:
+                    ls = comp_losses[int(i)]
+                    if len(ls):
+                        srv.last_loss[i] = ls[-1]
+                        srv.loss_age[i] = 0
+            else:
+                g["client_results"] = {int(i): probe_params[int(i)]
+                                       for i in g["survivors"]
+                                       if int(i) in probe_params}
 
     # ---- attack injection (per region, before the edge fold) ---------
     # same contract as the flat engine: adversarial survivors' uploads are
@@ -485,20 +490,21 @@ def run_topology_round(srv, policy):
     # the edge fold is where robust aggregation bites: adversarial clients
     # are out-voted inside their region before the delta crosses the tree
     # (aggregator="mean" keeps robust_aggregate == fedavg bit-for-bit)
-    deltas: Dict[str, Tuple[Params, float]] = {}
-    for g in regions:
-        if g["client_results"]:
-            ws = [srv.data_sizes[i] for i in g["client_results"]]
-            deltas[g["name"]] = (
-                robust_aggregate(list(g["client_results"].values()), ws,
-                                 kind=cfg.aggregator, trim=cfg.agg_trim,
-                                 f=cfg.agg_f, m_select=cfg.agg_m or None),
-                float(sum(ws)))
-    if deltas:
-        srv.global_params = fold_topology(
-            topo, srv.global_params, deltas, kind=cfg.staleness,
-            a=cfg.staleness_a, b=cfg.staleness_b, robust=cfg.aggregator,
-            trim=cfg.agg_trim, f=cfg.agg_f, m_select=cfg.agg_m or None)
+    with obs.span("aggregate"):
+        deltas: Dict[str, Tuple[Params, float]] = {}
+        for g in regions:
+            if g["client_results"]:
+                ws = [srv.data_sizes[i] for i in g["client_results"]]
+                deltas[g["name"]] = (
+                    robust_aggregate(list(g["client_results"].values()), ws,
+                                     kind=cfg.aggregator, trim=cfg.agg_trim,
+                                     f=cfg.agg_f, m_select=cfg.agg_m or None),
+                    float(sum(ws)))
+        if deltas:
+            srv.global_params = fold_topology(
+                topo, srv.global_params, deltas, kind=cfg.staleness,
+                a=cfg.staleness_a, b=cfg.staleness_b, robust=cfg.aggregator,
+                trim=cfg.agg_trim, f=cfg.agg_f, m_select=cfg.agg_m or None)
 
     # ---- telemetry (flat engine's feed order, concatenated) ----------
     def _concat(key):
@@ -515,24 +521,25 @@ def run_topology_round(srv, policy):
                  if regions else np.empty(0, dtype=np.int64))
     all_survivors = _concat("survivors")
 
-    tel = srv.telemetry
-    tel.observe_availability(base_ctx.available)
-    tel.observe_selection(all_selected)
-    tel.observe_dropouts(all_failed)
-    tel.observe_stragglers(all_strag)
-    if len(all_survivors):
-        durs = []
-        for g in regions:
-            sys_r, plan = g["ctx"].sys, g["plan"]
-            barrier = (float(sys_r.t_comp[g["probe_ids"]].max())
-                       * plan.probe_epochs if plan.has_probe else 0.0)
-            durs.append(barrier + sys_r.t_comm[g["survivors"]]
-                        + sys_r.t_comp[g["survivors"]]
-                        * plan.completion_epochs)
-        tel.observe_completions(all_survivors, np.concatenate(durs))
-        tel.observe_staleness(all_survivors,
-                              np.zeros(len(all_survivors)))
-    tel.observe_cadence(r_t)
+    with obs.span("telemetry"):
+        tel = srv.telemetry
+        tel.observe_availability(base_ctx.available)
+        tel.observe_selection(all_selected)
+        tel.observe_dropouts(all_failed)
+        tel.observe_stragglers(all_strag)
+        if len(all_survivors):
+            durs = []
+            for g in regions:
+                sys_r, plan = g["ctx"].sys, g["plan"]
+                barrier = (float(sys_r.t_comp[g["probe_ids"]].max())
+                           * plan.probe_epochs if plan.has_probe else 0.0)
+                durs.append(barrier + sys_r.t_comm[g["survivors"]]
+                            + sys_r.t_comp[g["survivors"]]
+                            * plan.completion_epochs)
+            tel.observe_completions(all_survivors, np.concatenate(durs))
+            tel.observe_staleness(all_survivors,
+                                  np.zeros(len(all_survivors)))
+        tel.observe_cadence(r_t)
 
     # ---- evaluate + record -------------------------------------------
     acc, test_loss = srv._evaluate()
@@ -560,9 +567,24 @@ def run_topology_round(srv, policy):
     srv.history.append(result)
     all_states = (np.vstack([g["probe_states"] for g in probing])
                   if probing else None)
-    policy.observe(base_ctx, result, all_probe if probing else None,
-                   all_states)
+    with obs.span("observe"):
+        policy.observe(base_ctx, result, all_probe if probing else None,
+                       all_states)
     result.host_time_s = time.perf_counter() - t_host0
+    if obs.enabled:
+        m = obs.metrics
+        m.gauge("devices_online", result.n_available)
+        m.gauge("n_selected", len(all_selected))
+        m.gauge("n_regions", len(regions))
+        m.count("failures", len(all_failed))
+        m.count("adversaries_merged", len(result.adversaries))
+        for tier, lag in tier_staleness.items():
+            m.gauge(f"tier_lag.{tier}", lag)
+        obs.flush_round(round=result.round, mode="sync",
+                        host_time_s=result.host_time_s,
+                        executor=result.executor,
+                        virtual_time_s=result.cum_time, r_t=result.r_t,
+                        acc=result.acc)
     return result
 
 
@@ -760,6 +782,7 @@ class HierarchicalAsyncEngine(AsyncRoundEngine):
         total_lags = np.concatenate(
             [d.client_lags + rl for d, rl in zip(take, root_lags)])
         srv.telemetry.observe_staleness(cids, total_lags)
+        self.obs.metrics.observe("staleness", total_lags)
         self._busy[cids] = False         # root-merged: devices may work again
         self._upload_slots -= len(cids)
 
@@ -804,3 +827,10 @@ class HierarchicalAsyncEngine(AsyncRoundEngine):
             self._last_observe = (None, None, None)
             self.policy.observe(ctx, result, probe_ids, probe_states)
         return result
+
+    def _merge_metrics(self, m) -> None:
+        """Per-region buffer fill + root fan-in level at each root merge:
+        the gauges that answer "which region's buffer starved?"."""
+        for r, buf in enumerate(self.region_buffers):
+            m.gauge(f"region_buffer_fill.{self.topo.leaves[r]}", len(buf))
+        m.gauge("root_buffer_fill", len(self.root_buffer))

@@ -29,6 +29,7 @@ from repro_torch.kernels.fleet_state.kernel import (  # noqa: F401 (re-exported)
     pack_queries,
     segment_index_lookup,
 )
+from repro_torch.obs.profiling import timed_call
 
 # the bucket table's entries, at most (64 MB of int32)
 MAX_BUCKET_ENTRIES = 1 << 24
@@ -108,7 +109,12 @@ def segment_index(segs: SegmentTable, period_s: float, src: np.ndarray,
     tau = np.asarray(t_s, dtype=np.float64) % period_s
     src_b, tau_b = np.broadcast_arrays(np.asarray(src, dtype=np.int64), tau)
     qi, qf = _split_times(tau_b.reshape(-1))
-    idx = segment_index_lookup(segs, src_b.reshape(-1).astype(np.int32), qi, qf)
+    # timed_call is a passthrough unless a profiler is active
+    # (repro_torch.obs.profiling); with one, every lookup's wall-clock lands
+    # in the run record's op table under its route
+    route = "cuda" if segs.device.type == "cuda" else "plain"
+    idx = timed_call(f"fleet_state.{route}", segment_index_lookup, segs,
+                     src_b.reshape(-1).astype(np.int32), qi, qf)
     return idx.astype(np.int64).reshape(src_b.shape)
 
 

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels.select_topk.kernel import select_topk_host
 from repro_torch.kernels.select_topk.ref import NEG_INF, stable_topk
+from repro_torch.obs.profiling import timed_call
 
 
 def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int
@@ -81,12 +82,20 @@ def select_topk(scores_fn: Union[dict, Callable[[np.ndarray], np.ndarray], None]
         return np.empty(0, np.int64), np.empty(0, np.float32)
 
     if isinstance(scores_fn, dict):              # fused Q-net path
-        vals, idx = select_topk_host(scores_fn, states, m, bias, k=min(int(k), n))
+        # timed_call is a passthrough unless a profiler is active
+        # (repro_torch.obs.profiling): then the call's wall-clock (the C
+        # call synchronises) lands in the run record's op table
+        route = "cuda" if scores_fn["w1"].device.type == "cuda" else "plain"
+        vals, idx = timed_call(f"select_topk.{route}", select_topk_host,
+                               scores_fn, states, m, bias, k=min(int(k), n))
         return idx[:k_eff], vals[:k_eff]
 
-    scores = states if scores_fn is None else np.asarray(scores_fn(states))
-    scores = np.asarray(scores, np.float64)
-    if bias is not None:
-        scores = scores + np.asarray(bias, np.float64)
-    idx = topk_indices(scores, k_eff, m)
-    return idx, scores[idx]
+    def _host_select():
+        scores = states if scores_fn is None else np.asarray(scores_fn(states))
+        scores = np.asarray(scores, np.float64)
+        if bias is not None:
+            scores = scores + np.asarray(bias, np.float64)
+        idx = topk_indices(scores, k_eff, m)
+        return idx, scores[idx]
+
+    return timed_call("select_topk.host", _host_select)

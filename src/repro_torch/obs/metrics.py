@@ -1,0 +1,80 @@
+"""Fleet metrics registry: counters, gauges and histograms per round.
+
+A :class:`MetricsRegistry` accumulates between flushes; the recorder calls
+:meth:`MetricsRegistry.snapshot` once per round/aggregation to fold the
+window into the JSONL round record and reset the window.  Everything is
+plain Python + numpy reductions over values the engines already computed —
+recording NEVER draws RNG or touches engine state, so metric feeds are
+safe to sprinkle through hot paths (the disabled path routes to
+:data:`NULL_METRICS`, whose methods are empty).
+
+Snapshot shape (all values JSON-native)::
+
+    {"counters":   {name: int},
+     "gauges":     {name: float},          # last value set in the window
+     "histograms": {name: {"n": int, "mean": float,
+                           "min": float, "max": float}}}
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+
+class MetricsRegistry:
+    """Per-window metric accumulator (one window = one round record)."""
+
+    def __init__(self):
+        self._counters: Dict[str, int] = {}
+        self._gauges: Dict[str, float] = {}
+        self._hists: Dict[str, List[float]] = {}
+
+    def count(self, name: str, inc: int = 1) -> None:
+        """Monotone counter within the window (e.g. adversaries merged)."""
+        self._counters[name] = self._counters.get(name, 0) + int(inc)
+
+    def gauge(self, name: str, value) -> None:
+        """Point-in-time level (e.g. buffer fill); last write per window wins."""
+        self._gauges[name] = float(value)
+
+    def observe(self, name: str, values) -> None:
+        """Feed a scalar or array of samples into a histogram (e.g. the
+        staleness lags of one merge)."""
+        arr = np.atleast_1d(np.asarray(values, dtype=np.float64))
+        if arr.size:
+            self._hists.setdefault(name, []).extend(float(v) for v in arr)
+
+    def snapshot(self, reset: bool = True) -> dict:
+        out = {
+            "counters": dict(self._counters),
+            "gauges": dict(self._gauges),
+            "histograms": {
+                name: {"n": len(vs), "mean": float(np.mean(vs)),
+                       "min": float(np.min(vs)), "max": float(np.max(vs))}
+                for name, vs in self._hists.items() if vs},
+        }
+        if reset:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+        return out
+
+
+class NullMetrics:
+    """The disabled path: every feed is a no-op method call."""
+
+    def count(self, name: str, inc: int = 1) -> None:
+        pass
+
+    def gauge(self, name: str, value) -> None:
+        pass
+
+    def observe(self, name: str, values) -> None:
+        pass
+
+    def snapshot(self, reset: bool = True) -> dict:
+        return {"counters": {}, "gauges": {}, "histograms": {}}
+
+
+NULL_METRICS = NullMetrics()

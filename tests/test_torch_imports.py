@@ -98,11 +98,9 @@ def test_no_jax_and_no_reference_imports(path):
 # Public names of a reference module that its port may lack, each named in
 # ROADMAP.md: queued for a later slice (section 1) ...
 QUEUED = {
-    "fl/__init__.py": {"LMTask"},                                   # item 4
-    "fl/tasks.py": {"LMTask"},
-    "launch/steps.py": {"make_optimizer", "make_train_step",      # item 4
+    "launch/steps.py": {"make_optimizer", "make_train_step",      # item 3
                         "params_struct", "opt_struct", "batch_specs",
-                        "decode_state_struct", "input_specs"},  # item 8
+                        "decode_state_struct", "input_specs"},  # item 5
 }
 # ... or replaced by the port's design (section 2): name -> the port's name
 # in the same module that takes its place
@@ -207,11 +205,12 @@ def test_cpu_is_explicit():
     ("regions", 3, None),
     ("attack", "signflip", None),
     ("aggregator", "krum", None),
-    ("observe", True, "observability"),
+    ("observe", True, None),
 ])
 def test_unported_config_is_refused(field, value, slice_name):
-    """``observe`` is refused, naming its slice; the hierarchy and robustness
-    features, once refused here, run one round."""
+    """Every feature once refused here now runs one round: the hierarchy,
+    the attacks, robust aggregation and the observed round, whose record
+    holds the round's spans."""
     from repro_torch.fl.attacks import SignFlip
 
     if value == "signflip":
@@ -228,6 +227,12 @@ def test_unported_config_is_refused(field, value, slice_name):
                for t in srv.global_params.values())
     if field in ("topology", "regions"):
         assert srv.topology is not None and hist[0].tier_staleness
+    if field == "observe":
+        from repro_torch.obs import clear_profiler
+
+        clear_profiler(srv.obs)
+        rounds = [r for r in srv.obs.records if r["type"] == "round"]
+        assert len(rounds) == 1 and "aggregate" in {s["span"] for s in rounds[0]["spans"]}
 
 
 def test_unknown_policy_lists_registered():
