@@ -7,7 +7,8 @@ With no argument it runs every step below.  Given step names (``build``,
 ``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
 ``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
 ``path5_async``, ``vmapped``, ``path8_hierarchy``, ``path6_lm``,
-``path7_ssm``, ``path9_lm_fl``, ``obs``) it builds every library, runs only
+``path7_ssm``, ``path9_lm_fl``, ``obs``, ``path10_lm_train``) it builds
+every library, runs only
 those steps and ends with the summary line and the card line; the
 ``kernels`` line and the last line need the whole run.
 
@@ -88,7 +89,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    hierarchical FedRank round and one ``krum`` round on
    ``byzantine-signflip`` give the same cohorts and adversaries (params
    within 1e-4), one LM FL round (yi-6b smoke, fp32, 8 devices, k=2) gives
-   the same cohort and params within 1e-4, and the
+   the same cohort and params within 1e-4, 3 ``make_train_step`` steps
+   (yi-6b under ``impl="naive"`` and ``"blocked"``, hymba and rwkv6 under
+   ``"blocked"``; smoke configs, fp32, the same ``lm_batches``) give the
+   same losses, step-1 gradients and params within 1e-4, and the
    yi-6b, h2o-danube, hymba and rwkv6 smoke LMs give the same logits over a
    prefill (by the kernels) and 8 decode steps; at full width (2 layers,
    fp32) prefill by the kernels and decode through the ring cache and the
@@ -169,7 +173,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     ``build/obs/`` pass the port's ``check_run`` (coverage >= 0.5) and list
     ``executor.*``, ``select_topk.cuda`` and ``fleet_state.cuda`` with fenced
     times; one round inside ``trace_gate`` writes a Chrome trace;
-14. a ``summary`` line (each step's status, host seconds, its phases'
+14. path 10, ``path10_lm_train``, LM training: Yi-6B at its published
+    width, depth cut to 4 layers (1.22 B parameters), bf16, ``remat=True``,
+    batch 4 x 1024 tokens from ``make_lm_stream``, AdamW with
+    ``linear_warmup_cosine`` (lr 3e-4): 20 steps under ``impl="naive"`` and
+    20 from the same init under ``"blocked"`` (finite losses, the last below
+    the first; step 1's loss and gradients of the two routes within a bf16
+    tolerance; ms per step, tokens/s, model FLOP rate, peak memory), one step
+    with remat on and off (equal loss and gradients, the peak memory of
+    each), one step under ``torch.profiler``; Hymba-1.5B and RWKV6-3B at
+    full width, 2 layers, batch 2 x 512, 3 steps each; the kernel routes
+    refuse params that require grad; a bf16 smoke train state through
+    ``save_pytree``/``load_pytree`` bit-equal and ``latest_checkpoint``;
+    ``train()`` on the card reduces the loss.  Every kernel counter stays 0:
+    the kernels have no backward, and training takes the plain routes, as
+    the reference's does;
+15. a ``summary`` line (each step's status, host seconds, its phases'
     seconds, largest error and device idle shares; printed also when a step
     fails, before the error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
@@ -204,7 +223,17 @@ rounded once to bf16: within one bf16 ulp of its magnitude).  LMs: CPU and
 card within 1e-4 on the logits (fp32 sums in another order through two
 layers); at full width within 1e-4 * max(1, max |logit|) of the naive
 forward, 39x under the 2^-8 relative error of one bf16 rounding of the
-attention's probabilities or sums.  ``mamba`` and ``rwkv6`` (fp32 in and
+attention's probabilities or sums.  LM training: CPU and card within
+1e-4 (losses, step-1 gradients over each leaf's largest magnitude, params;
+fp32 smoke configs, the step's own optimizer, whose first 3 steps move each
+weight by at most 4e-6, so Adam's division by sqrt(nu) cannot turn gradient
+noise near 0 into a visible move); at full width in bf16 the two attention
+routes within 2^-7 relative on the loss and 2^-5 of each leaf's largest
+magnitude on the gradients (each route rounds its attention output to bf16
+once, and an entry rounded to a neighbouring value moves everything
+downstream by that ulp); remat on and off: equal losses, gradients within
+one bf16 ulp at each leaf's largest magnitude (the same kernels, run
+again).  ``mamba`` and ``rwkv6`` (fp32 in and
 out; the plain version in fp32 on the same inputs): every output and final
 state within 2e-5 * max(1, max |ref|) of its row, the (batch, channel) row
 of the scan and the (batch, head) row of the WKV (fp32 sums over the state
@@ -254,7 +283,7 @@ def emit(**kw) -> None:
                 summary[key] = val
             elif "err" in key and isinstance(val, (int, float)):
                 summary["max_err"] = max(summary.get("max_err", 0.0), float(val))
-            elif key == "device_idle_share":
+            elif key == "device_idle_share" and isinstance(val, (int, float)):
                 summary.setdefault("idle", []).append(float(f"{val:.4g}"))
 
 
@@ -2903,6 +2932,385 @@ def phase_cpu_agreement_lm_fl(torch):
 
 
 # ---------------------------------------------------------------------------
+# path 10: LM training
+# ---------------------------------------------------------------------------
+
+# Yi-6B at its published width, depth cut to 4 layers (1.22 B parameters:
+# 2.43 GB of bf16 params, 9.73 GB of fp32 moments, about 27 GB at the
+# functional update's peak); full depth (6.06 B) needs 72.7 GB before the
+# update's copies.  lr: 3e-4, the peak of the reference's make_optimizer
+LM_TRAIN = dict(arch="yi-6b", layers=4, batch=4, seq=1024, steps=20, lr=3e-4,
+                smoke=False)
+LM_TRAIN_SSM = dict(archs=("hymba-1.5b", "rwkv6-3b"), layers=2, batch=2, seq=512,
+                    steps=3, lr=3e-4)
+# naive vs blocked attention at step 1, bf16: both compute the attention in
+# fp32 and round its output to bf16 once; where the two round an entry to
+# neighbouring bf16 values, everything downstream moves by that ulp.  The
+# loss within 2^-7 relative (one bf16 ulp of the logits), every gradient
+# within 2^-5 of its leaf's largest magnitude (a few such ulps, summed)
+TRAIN_ROUTE_LOSS_TOL = 2 ** -7
+TRAIN_ROUTE_GRAD_TOL = 2 ** -5
+CPU_CARD_TRAIN_TOL = 1e-4    # smoke configs, fp32: fp32 sums in another order
+
+
+_STREAMS: dict = {}          # vocab -> make_lm_stream's tokens (1 s each to make)
+
+
+def train_batches(cfg, batch, seq, device, seed=0):
+    """``lm_batches`` over ``make_lm_stream``, as ``launch/train.py`` draws them."""
+    from repro_torch.data import make_lm_stream
+    from repro_torch.launch.train import lm_batches
+
+    if cfg.vocab_size not in _STREAMS:
+        _STREAMS[cfg.vocab_size] = make_lm_stream(n_tokens=1 << 17, vocab=cfg.vocab_size,
+                                                  seed=0)
+    return lm_batches(_STREAMS[cfg.vocab_size], batch, seq, seed, device)
+
+
+def train_recipe(lr, steps):
+    """``launch/train.py``'s optimizer."""
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    return adamw(linear_warmup_cosine(lr, steps // 10, steps), weight_decay=0.01,
+                 grad_clip=1.0)
+
+
+def recording(torch, opt, seen):
+    """``opt`` whose update first records the step's gradients and the peak
+    memory of the forward and backward (once: the first step)."""
+    from repro_torch.optim import Optimizer
+
+    def update(grads, params, state):
+        if not seen:
+            seen.append((grads, torch.cuda.max_memory_allocated()))
+        return opt.update(grads, params, state)
+
+    return Optimizer(opt.init, update)
+
+
+def leaf_errors(torch, got, want):
+    """Largest |got - want| of each leaf over its largest |want|."""
+    from repro_torch.fl._tree import tree_leaves
+
+    out = []
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        scale = float(b.float().abs().max())
+        out.append(float((a.float() - b.float()).abs().max()) / (scale or 1.0))
+    return out
+
+
+def run_train(torch, cfg, params, impl, steps, lr, batch, seq):
+    """``steps`` train steps from ``params`` (left as they are), synchronised
+    after each for its time (the batch's draw and upload included): losses,
+    ms per step, step 1's gradients and forward-and-backward peak, the
+    step's peak memory."""
+    from repro_torch.launch.steps import make_train_step
+
+    seen = []
+    step = make_train_step(cfg, recording(torch, train_recipe(lr, steps), seen), impl=impl)
+    opt = train_recipe(lr, steps).init(params)
+    batches = train_batches(cfg, batch, seq, "cuda")
+    p, losses, ms = params, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        p, opt, metrics = step(p, opt, next(batches))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).tolist()
+    require(all(math.isfinite(v) for v in losses), (cfg.name, impl, losses))
+    return dict(losses=losses, ms=ms, grads=seen[0][0], fwd_bwd_peak_gb=seen[0][1] / 1e9,
+                step_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_cpu_agreement_lm_train(torch):
+    """(a) Smoke configs in fp32 (yi-6b under impl="naive" and "blocked",
+    hymba and rwkv6 under "blocked"): 3 ``make_train_step`` steps on the CPU
+    and on the card from the same weights and the same ``lm_batches``, with
+    the step's default optimizer (``make_optimizer``): losses, step 1's
+    gradients (over each leaf's largest magnitude) and the final params
+    within CPU_CARD_TRAIN_TOL."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl._tree import tree_leaves
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import transformer as T
+
+    for arch, impl in (("yi-6b", "naive"), ("yi-6b", "blocked"), ("hymba-1.5b", "blocked"),
+                       ("rwkv6-3b", "blocked")):
+        cfg = get_model_config(arch, smoke=True)
+        init = T.init_params(0, cfg, "cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            seen = []
+            opt = make_optimizer(3)
+            step = make_train_step(cfg, recording(torch, opt, seen), impl=impl)
+            p, st = tree_to(init, dev), opt.init(tree_to(init, dev))
+            batches = train_batches(cfg, 4, 64, dev)
+            losses = []
+            for _ in range(3):
+                p, st, m = step(p, st, next(batches))
+                losses.append(float(m["loss"]))
+            out[dev] = (losses, [t.cpu() for t in tree_leaves(seen[0][0])],
+                        [t.cpu() for t in tree_leaves(p)], int(st["step"]))
+        (lc, gc, pc, sc), (lg, gg, pg, sg) = out["cpu"], out["cuda"]
+        loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+        grad_err = max(leaf_errors(torch, gg, gc))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+        require(sc == sg == 3 and loss_err <= CPU_CARD_TRAIN_TOL
+                and grad_err <= CPU_CARD_TRAIN_TOL and param_err <= CPU_CARD_TRAIN_TOL,
+                (arch, impl, loss_err, grad_err, param_err))
+        emit(phase="cpu_vs_card", run=f"lm_train/{arch}-smoke/{impl}", steps=3,
+             losses_card=lg, max_abs_loss_err=loss_err, max_grad_err_over_leaf_max=grad_err,
+             max_abs_param_err=param_err, tolerance=CPU_CARD_TRAIN_TOL)
+
+
+def phase_lm_train_path(torch):
+    """Path 10, LM training (``make_train_step``, ``launch/train.py``):
+
+    (b) Yi-6B at its published width (d 4096, 32/4 heads of 128, d_ff
+    11008, vocab 64000), depth cut to 4 layers, bf16, ``remat=True`` (the
+    config's own), batch 4 x 1024 tokens from ``make_lm_stream``, AdamW with
+    ``linear_warmup_cosine`` (lr 3e-4): 20 steps under ``impl="naive"`` and
+    20 from the same init under ``"blocked"``; every loss finite and the
+    last below the first; step 1's loss and gradients of the two routes
+    within TRAIN_ROUTE_*_TOL; one step with remat on and off from the same
+    params (equal loss, gradients within one bf16 ulp at each leaf's largest
+    magnitude; peak memory of each); ms per step, tokens/s, the model FLOP
+    rate (6 N tokens/s against the bf16 peak) and one step under
+    torch.profiler.
+    (c) Hymba-1.5B and RWKV6-3B at full width, 2 layers, bf16, batch 2 x
+    512, 3 steps each under ``"blocked"``: finite losses, ms per step.
+    (d) Every kernel counter stays 0 across the path; with params that
+    require grad, a forward through ``impl="flash"`` and the ``"cuda"`` SSM
+    routes raises.
+    (e) ``save_pytree``/``load_pytree`` of a bf16 smoke train state from the
+    card reloads bit-equal with its dtypes; ``latest_checkpoint`` picks the
+    highest step.
+    (f) ``train()`` on the card reduces the loss."""
+    import dataclasses
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl._tree import tree_leaves
+    from repro_torch.models import transformer as T
+
+    c = LM_TRAIN
+    full = get_model_config(c["arch"], smoke=c["smoke"])
+    cfg = dataclasses.replace(full, n_layers=c["layers"])
+    n_params = cfg.param_count()
+    tokens = c["batch"] * c["seq"]
+    emit(phase="lm_train_config", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, remat=cfg.remat, params=n_params,
+         param_gb=2 * n_params / 1e9, moment_gb=8 * n_params / 1e9,
+         full_depth_params=full.param_count(),
+         note="full depth: bf16 params, gradients and fp32 moments alone take "
+              f"{12 * full.param_count() / 1e9:.1f} GB before the update's copies",
+         **{k: v for k, v in c.items() if k not in ("arch", "layers")})
+    reset_counts()                                # every count to 0
+    params = T.init_params(0, cfg, "cuda")
+    runs = {}
+    for impl in ("naive", "blocked"):
+        runs[impl] = run_train(torch, cfg, params, impl, c["steps"], c["lr"], c["batch"],
+                               c["seq"])
+        r = runs[impl]
+        require(r["losses"][-1] < r["losses"][0], (impl, r["losses"]))
+        steady = statistics.median(r["ms"][1:])
+        emit(phase="lm_train", model=cfg.name, impl=impl, steps=c["steps"],
+             losses=r["losses"], ms_per_step_median=steady, ms_first_step=r["ms"][0],
+             ms_per_step=r["ms"], tokens_per_s=tokens / (steady / 1e3),
+             model_tflops=6 * n_params * tokens / (steady / 1e3) / 1e12,
+             model_flop_share_of_bf16_peak=6 * n_params * tokens / (steady / 1e3)
+             / H100_BF16_FLOPS,
+             fwd_bwd_peak_gb=r["fwd_bwd_peak_gb"], step_peak_gb=r["step_peak_gb"])
+        torch.cuda.empty_cache()
+    (gn, gb) = runs["naive"]["grads"], runs["blocked"]["grads"]
+    l_n, l_b = runs["naive"]["losses"][0], runs["blocked"]["losses"][0]
+    route_grad = leaf_errors(torch, gb, gn)
+    require(abs(l_n - l_b) <= TRAIN_ROUTE_LOSS_TOL * abs(l_n)
+            and max(route_grad) <= TRAIN_ROUTE_GRAD_TOL, (l_n, l_b, route_grad))
+    emit(phase="lm_train_routes", model=cfg.name, step1_loss_naive=l_n,
+         step1_loss_blocked=l_b, max_grad_err_over_leaf_max=max(route_grad),
+         tolerance=f"loss {TRAIN_ROUTE_LOSS_TOL} relative, gradients "
+                   f"{TRAIN_ROUTE_GRAD_TOL} of each leaf's largest magnitude")
+    del runs, gn, gb
+    torch.cuda.empty_cache()
+
+    # remat on and off, one step each from the same params
+    remat = {}
+    for on in (True, False):
+        r = run_train(torch, dataclasses.replace(cfg, remat=on), params, "naive", 1,
+                      c["lr"], c["batch"], c["seq"])
+        remat[on] = r
+        torch.cuda.empty_cache()
+    ulps = [bf16_ulp(torch, b) for b in tree_leaves(remat[False]["grads"])]
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(tree_leaves(remat[True]["grads"]), tree_leaves(remat[False]["grads"]))]
+    require(remat[True]["losses"] == remat[False]["losses"]
+            and all(d <= u for d, u in zip(diffs, ulps)), (remat[True]["losses"],
+                                                           remat[False]["losses"], diffs))
+    emit(phase="lm_train_remat", model=cfg.name, impl="naive",
+         loss_on=remat[True]["losses"][0], loss_off=remat[False]["losses"][0],
+         grads_bit_equal=max(diffs) == 0.0, max_abs_grad_diff=max(diffs),
+         fwd_bwd_peak_gb_remat=remat[True]["fwd_bwd_peak_gb"],
+         fwd_bwd_peak_gb_no_remat=remat[False]["fwd_bwd_peak_gb"],
+         step_peak_gb_remat=remat[True]["step_peak_gb"],
+         step_peak_gb_no_remat=remat[False]["step_peak_gb"],
+         ms_remat=remat[True]["ms"][0], ms_no_remat=remat[False]["ms"][0])
+    del remat
+    torch.cuda.empty_cache()
+
+    # one step under torch.profiler (naive, remat), after a warm step
+    from repro_torch.launch.steps import make_train_step
+
+    step = make_train_step(cfg, train_recipe(c["lr"], c["steps"]), impl="naive")
+    opt = train_recipe(c["lr"], c["steps"]).init(params)
+    batches = train_batches(cfg, c["batch"], c["seq"], "cuda")
+    p, opt, _ = step(params, opt, next(batches))
+    b = next(batches)
+    wall, rows, dev_us, _ = device_profile(torch, lambda: step(p, opt, b))
+    busy_s = sum(dev_us(e) for e in rows) / 1e6
+    top = sorted(rows, key=dev_us, reverse=True)[:10]
+    emit(phase="profile", path="lm_train", model=cfg.name, impl="naive", wall_s=wall,
+         device_kernels=sum(e.count for e in rows), device_busy_s=busy_s,
+         device_idle_share=(1.0 - busy_s / wall) if busy_s else "not measured",
+         top_device_ms=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+    del step, opt, p, b, params
+    torch.cuda.empty_cache()
+
+    # (c) the SSM families at full width, 2 layers
+    s = LM_TRAIN_SSM
+    for arch in s["archs"]:
+        scfg = dataclasses.replace(get_model_config(arch, smoke=c["smoke"]),
+                                   n_layers=s["layers"])
+        sparams = T.init_params(0, scfg, "cuda")
+        r = run_train(torch, scfg, sparams, "blocked", s["steps"], s["lr"], s["batch"],
+                      s["seq"])
+        emit(phase="lm_train", model=scfg.name, layers=scfg.n_layers, dtype=scfg.dtype,
+             remat=scfg.remat, params=scfg.param_count(), impl="blocked",
+             batch=s["batch"], seq=s["seq"], losses=r["losses"], ms_per_step=r["ms"],
+             step_peak_gb=r["step_peak_gb"])
+        del sparams, r
+        torch.cuda.empty_cache()
+
+    # (d) the kernels' routes refuse to train
+    phase_train_refusals(torch)
+    # (e) checkpoints of a smoke train state from the card
+    phase_train_checkpoints(torch)
+    # (f) the driver
+    phase_train_driver(torch)
+    counts = read_counts()                        # read just after
+    require(all(n == 0 for n in counts.values()), ("a kernel launched in training", counts))
+    emit(phase="main_launches", path="lm_train", launches=counts)
+    return counts
+
+
+def phase_train_refusals(torch):
+    """With params that require grad, a forward through the kernel routes
+    raises before any launch: ``impl="flash"`` for yi-6b, hymba and rwkv6,
+    and the ``"cuda"`` SSM mixers alone (smoke configs, fp32)."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl._tree import tree_leaves
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as T
+
+    before = read_counts()
+    refused = []
+    for arch in ("yi-6b", "hymba-1.5b", "rwkv6-3b"):
+        cfg = get_model_config(arch, smoke=True)
+        params = T.init_params(0, cfg, "cuda")
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        tok = torch.zeros((2, 64), dtype=torch.int64, device="cuda")
+        calls = [("forward/flash", lambda: T.forward(params, cfg, tok, impl="flash"))]
+        lp = T.layer_params(params["layers"], 0)
+        x = torch.randn((2, 64, cfg.d_model), device="cuda")
+        if arch == "hymba-1.5b":
+            st = ssm_lib.init_mamba_state(cfg, 2, x.device)
+            calls.append(("mamba_scan/cuda",
+                          lambda: ssm_lib.mamba_scan(lp["mamba"], x, st, cfg, impl="cuda")))
+        if arch == "rwkv6-3b":
+            st = ssm_lib.init_rwkv_state(cfg, 2, x.device)
+            calls.append(("rwkv_time_mix_chunked/cuda",
+                          lambda: ssm_lib.rwkv_time_mix_chunked(lp["time_mix"], x, st, cfg,
+                                                                impl="cuda")))
+        for name, fn in calls:
+            try:
+                fn()
+            except ValueError as e:
+                require("has no backward" in str(e), (arch, name, e))
+                refused.append(f"{arch}:{name}")
+            else:
+                raise RuntimeError(f"chip_smoke: {arch} {name} trained through a kernel")
+    require(read_counts() == before, "a refused call launched a kernel")
+    emit(phase="lm_train_refusals", refused=refused)
+
+
+def phase_train_checkpoints(torch):
+    """A bf16 yi-6b smoke train state after one step on the card:
+    ``save_pytree`` then ``load_pytree`` gives the same bits and dtypes;
+    ``latest_checkpoint`` picks the highest of three steps."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import latest_checkpoint, load_pytree, save_pytree
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl._tree import tree_leaves
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_model_config("yi-6b", smoke=True), dtype="bfloat16")
+    params = T.init_params(0, cfg, "cuda")
+    opt = make_optimizer(10)
+    state = opt.init(params)
+    params, state, _ = make_train_step(cfg, opt)(params, state,
+                                                next(train_batches(cfg, 4, 64, "cuda")))
+    tree = {"params": params, "opt": state}
+    root = ROOT / "build" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    paths = [str(root / f"step_{s}.ckpt") for s in (1, 12, 3)]
+    t0 = time.perf_counter()
+    for path in paths:
+        save_pytree(tree, path)
+    save_s = (time.perf_counter() - t0) / len(paths)
+    back = load_pytree(paths[1])
+    want, got = tree_leaves(tree), tree_leaves(back)
+    require(len(want) == len(got) and all(
+        a.dtype == b.dtype and a.shape == b.shape and b.device.type == "cpu"
+        and torch.equal(a.cpu(), b) for a, b in zip(want, got)), "checkpoint round trip")
+    require(latest_checkpoint(str(root)) == paths[1], latest_checkpoint(str(root)))
+    emit(phase="lm_train_checkpoint", model=cfg.name, dtype=cfg.dtype,
+         leaves=len(got), bytes=Path(paths[1]).stat().st_size, save_s=save_s,
+         dtypes=sorted({str(t.dtype) for t in got}), latest=Path(paths[1]).name)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_driver(torch):
+    """``train()`` on the card, smoke config: the issue's short run (40
+    steps, batch 4, seq 64) reported, and 200 steps of batch 8 held to a
+    lower loss: the mean of the last ten losses below that of the first ten
+    (on this stream a batch's loss moves by a few 1e-2 from one batch to the
+    next, more than 40 steps move it)."""
+    from repro_torch.launch.train import train
+
+    t0 = time.perf_counter()
+    short = train("yi-6b", smoke=True, steps=40, batch=4, seq=64, verbose=False,
+                  device="cuda")
+    short_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = train("yi-6b", smoke=True, steps=200, batch=8, seq=64, log_every=1,
+                 verbose=False, device="cuda")
+    long_s = time.perf_counter() - t0
+    loss = hist["loss"]
+    first, last = statistics.fmean(loss[:10]), statistics.fmean(loss[-10:])
+    require(all(math.isfinite(v) for v in loss) and last < first, (first, last))
+    emit(phase="lm_train_driver", model="yi-6b-smoke", short_run_losses=short["loss"],
+         short_run_s=short_s, steps=200, batch=8, seq=64, first10_mean=first,
+         last10_mean=last, seconds=long_s, tokens_per_s=hist["tokens_per_s"][-1])
+
+
+# ---------------------------------------------------------------------------
 # observability
 # ---------------------------------------------------------------------------
 
@@ -3042,7 +3450,8 @@ def spill_bytes(log):
 STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attention",
          "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
          "path3_baselines", "path4_trace", "path5_async", "vmapped",
-         "path8_hierarchy", "path6_lm", "path7_ssm", "path9_lm_fl", "obs")
+         "path8_hierarchy", "path6_lm", "path7_ssm", "path9_lm_fl", "obs",
+         "path10_lm_train")
 
 
 def run_phases(torch, card, only=()):
@@ -3134,13 +3543,14 @@ def run_phases(torch, card, only=()):
             timed("hierarchy", phase_cpu_agreement_hierarchy, torch)
             timed("lm", phase_cpu_agreement_lm, torch)
             timed("lm_fl", phase_cpu_agreement_lm_fl, torch)
+            timed("lm_train", phase_cpu_agreement_lm_train, torch)
     if want("full_width"):
         with step("full_width"):
             phase_full_width_agreement(torch)
 
     # ---- 5-13: the paths, each with its own launch counts --------------
-    if any(want(name) for name in STEPS
-           if name.startswith("path") or name in ("vmapped", "obs")):
+    if any(want(name) for name in STEPS if name.startswith("path") and name != "path10_lm_train"
+           or name in ("vmapped", "obs")):
         t0 = time.perf_counter()
         data = small_data(64_000, 1000)
         emit(phase="main_data", samples=64_000, clients=1000,
@@ -3186,6 +3596,9 @@ def run_phases(torch, card, only=()):
     if want("obs"):
         with step("obs"):
             phase_obs(torch, data)
+    if want("path10_lm_train"):
+        with step("path10_lm_train"):
+            lm_train_counts = phase_lm_train_path(torch)
     if only:
         return None
 
@@ -3194,7 +3607,7 @@ def run_phases(torch, card, only=()):
     il = pr_timings["il_b16_n30"]
     fs_main = fs_timings["main_week"]
     fa_main = fa_timings["yi_prefill"]
-    return [
+    entries = [
         dict(kernel_entry("select_topk", "src/repro_torch/csrc/select_topk.cu",
                           "src/repro/kernels/select_topk/kernel.py:98",
                           sync_counts["select_topk"], max_err, main_shape,
@@ -3261,6 +3674,11 @@ def run_phases(torch, card, only=()):
              ms_back_to_back=ssm_timings["rwkv6_prefill"]["ms_back_to_back"],
              launch_config=ssm_timings["rwkv6_prefill"]["launch"]),
     ]
+    # LM training (path 10) runs none of the kernels: no backward exists
+    for e in entries:
+        e["launches_lm_train"] = sum(n for k, n in lm_train_counts.items()
+                                     if k.startswith(e["name"]) and k != "flash_attention_mma")
+    return entries
 
 
 if __name__ == "__main__":

@@ -21,4 +21,24 @@
 
 ``_build`` compiles each source with ``nvcc`` at first use and binds it with
 ``ctypes``.
+
+The ``flash_attention``, ``mamba`` and ``rwkv6`` kernels have no backward:
+their ops refuse inputs that require grad (:func:`refuse_grad`) on every
+device, so a loss taken through them raises instead of training with
+missing gradients.
 """
+from __future__ import annotations
+
+import torch
+
+
+def refuse_grad(op: str, *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` when autograd is on and any of ``tensors``
+    requires grad: the op ``op`` has no backward.  The check is the same on
+    the CPU, where the op takes its differentiable plain version, as on the
+    card, where the kernel's output would carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{op} has no backward, and an input requires grad: train through "
+            "the differentiable routes, impl='naive' or impl='blocked', or "
+            "call it under torch.no_grad()")

@@ -13,11 +13,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, Dh); k/v: (B, S, KV, Dh) -> (B, S, H, Dh)."""
+    """q: (B, S, H, Dh); k/v: (B, S, KV, Dh) -> (B, S, H, Dh).  Forward
+    only: inputs that require grad raise (:func:`refuse_grad`)."""
+    refuse_grad("flash_attention", q, k, v)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

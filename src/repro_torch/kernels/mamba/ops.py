@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mamba.kernel import selective_scan_cuda
 
 
@@ -21,5 +22,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x/dt: (B,T,inner); Bm/Cm: (B,T,state); A: (inner,state);
-    h0: (B,inner,state) -> (y (B,T,inner), h_final), all fp32."""
+    h0: (B,inner,state) -> (y (B,T,inner), h_final), all fp32.  Forward
+    only: inputs that require grad raise (:func:`refuse_grad`)."""
+    refuse_grad("selective_scan", x, dt, Bm, Cm, A, h0)
     return selective_scan_cuda(x, dt, Bm, Cm, A, h0)

@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
 
 
@@ -21,14 +22,18 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/logw: (B, T, H, n); u: (H, n) or (B, H, n); s0: (B, H, n, n)
-    -> (y (B, T, H, n), s_final (B, H, n, n)), all fp32."""
+    -> (y (B, T, H, n), s_final (B, H, n, n)), all fp32.  Forward only:
+    inputs that require grad raise (:func:`refuse_grad`)."""
+    refuse_grad("wkv6_heads", r, k, v, logw, u, s0)
     return wkv6_cuda(r, k, v, logw, u, s0)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/logw: (BH, T, n); u: (BH, n); s0: (BH, n, n) ->
-    (y (BH, T, n), s_final (BH, n, n)), all fp32."""
+    (y (BH, T, n), s_final (BH, n, n)), all fp32.  Forward only, as
+    :func:`wkv6_heads`."""
+    refuse_grad("wkv6", r, k, v, logw, u, s0)
     y, s = wkv6_cuda(r[:, :, None], k[:, :, None], v[:, :, None], logw[:, :, None],
                      u[:, None], s0[:, None])
     return y[:, :, 0], s[:, 0]

@@ -1,10 +1,9 @@
-"""Step functions of the serving path.
+"""Step functions: the training step, serving's prefill and decode steps.
 
 The reference's ``repro.launch.steps`` also builds ``ShapeDtypeStruct``
 stand-ins for its XLA dry-run (``params_struct``, ``opt_struct``,
 ``batch_specs``, ``decode_state_struct``, ``input_specs``); they come with the
-port's mesh tooling.  ``make_optimizer``/``make_train_step`` come with the LM
-training slice.
+port's mesh tooling.
 """
 from __future__ import annotations
 
@@ -13,7 +12,9 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.fl._tree import tree_leaves, tree_unflatten
 from repro_torch.models import transformer as T
+from repro_torch.optim import Optimizer, adamw, linear_warmup_cosine
 
 
 def text_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
@@ -21,6 +22,37 @@ def text_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
     if cfg.frontend is not None and not cfg.enc_dec:
         return max(1, shape.seq_len - cfg.frontend.n_tokens)
     return shape.seq_len
+
+
+def make_optimizer(total_steps: int = 10_000) -> Optimizer:
+    return adamw(linear_warmup_cosine(3e-4, 500, total_steps),
+                 weight_decay=0.1, grad_clip=1.0)
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, impl: str = "blocked"
+                    ) -> Callable[[Any, Dict[str, Any], Dict[str, torch.Tensor]],
+                                  Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]]:
+    """``train_step(params, opt_state, batch) -> (new_params, new_opt,
+    {"loss", "xent", "aux"})``: the gradient of :func:`~repro_torch.models.
+    transformer.loss_fn` by ``torch.autograd.grad`` over the leaves (in the
+    reference's order), then ``optimizer.update``.  The inputs are left as
+    they were; the metrics stay device tensors, so a step never waits for
+    the host.  ``impl`` is the attention route: ``"blocked"`` (the default,
+    as in the reference) or ``"naive"``; ``"flash"`` raises, its kernels
+    have no backward.  ``cfg.remat`` checkpoints each layer."""
+
+    def train_step(params, opt_state, batch):
+        live = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = T.loss_fn(tree_unflatten(params, live), cfg, batch, impl=impl)
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
+        new_params, new_opt = optimizer.update(tree_unflatten(params, list(grads)),
+                                               params, opt_state)
+        return new_params, new_opt, {"loss": loss.detach(),
+                                     **{k: v.detach() for k, v in metrics.items()}}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, impl: str = "flash"

@@ -8,9 +8,12 @@ Implementations of the prefill attention (``attention_prefill(impl=)``):
               the hand-written CUDA kernel on the card, its plain version on
               the CPU.  The reference calls this route ``pallas`` (its TPU
               kernel).
-* ``blocked`` — the reference's XLA flash attention with its VJP
-              (``models/flash_xla.py``), a training module: it comes with the
-              LM training slice and raises ``NotImplementedError`` until then.
+* ``blocked`` — the reference's flash attention with its chunked backward
+              (``models/flash_xla.py``): plain tensor code, differentiable,
+              bounded memory; the default route of ``make_train_step``.
+
+``flash`` is forward only: its op refuses inputs that require grad, so a
+loss is differentiated through ``naive`` or ``blocked``.
 
 :func:`blocked_attention` (online softmax over query and key chunks) is the
 reference's bounded-memory attention, ported as plain tensor code.  Decode
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.flash_xla import flash_attention_xla
 from repro_torch.models.layers import apply_rope, dense_init_on
 
 NEG_INF = -1e30
@@ -228,11 +232,10 @@ def attention_prefill(
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     if impl == "blocked" and kv_from is None:
-        raise NotImplementedError(
-            "attention impl 'blocked' is the reference's models/flash_xla.py "
-            "(XLA flash attention with its VJP), a training module: it comes "
-            "with the LM training slice; use impl='flash' or 'naive'")
-    if impl == "flash" and kv_from is None:
+        qg = q.reshape(b, s, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)
+        out = flash_attention_xla(qg, k, v, causal, window)
+        out = out.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    elif impl == "flash" and kv_from is None:
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = naive_attention(q, k, v, causal=causal and kv_from is None, window=window)

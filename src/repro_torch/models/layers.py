@@ -212,13 +212,50 @@ def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _Xent(torch.autograd.Function):
+    """Masked mean cross-entropy with the reference's memory-lean VJP
+    (``_xent_vjp_fwd``/``_bwd``).  The forward's statistics are fp32; the
+    residuals are the logits in their own dtype, the labels, ``logz``, the
+    mask and its clamped sum.  Autograd's own backward of the fp32 math
+    would keep an fp32 copy of the whole (..., V) logits instead.  The
+    gradient, ``(softmax - onehot) * g * m / denom`` in the logits' dtype,
+    is formed in the order autograd of that math takes (``s * softmax``,
+    then ``- s`` at the label, ``s = g / denom * m``), so fp32 logits get
+    the same bits as from autograd (the reference's order differs by an
+    ulp at the label).  Works under ``torch.func`` transforms
+    (``generate_vmap_rule``), as the vmapped FL executor needs."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(logits, labels, m):
+        lf = logits.float()
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+        denom = torch.clamp(m.sum(), min=1.0)
+        return ((logz - gold) * m).sum() / denom, logz, denom
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels, m = inputs
+        _, logz, denom = output
+        ctx.mark_non_differentiable(logz, denom)
+        ctx.save_for_backward(logits, labels, logz, m, denom)
+
+    @staticmethod
+    def backward(ctx, g, _glogz, _gdenom):
+        logits, labels, logz, m, denom = ctx.saved_tensors
+        s = (g / denom * m).unsqueeze(-1)
+        dl = torch.exp(logits.float() - logz.unsqueeze(-1))           # softmax
+        dl.mul_(s)
+        dl.scatter_add_(-1, labels.long().unsqueeze(-1), -s)          # - onehot * s
+        return dl.to(logits.dtype), None, None
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy over valid positions. logits (..., V), labels (...);
-    fp32 statistics."""
-    lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
-    nll = logz - gold
-    m = (torch.ones_like(nll) if mask is None else mask.float())
-    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    fp32 statistics, the gradient in the logits' dtype (:class:`_Xent`)."""
+    m = (torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+         if mask is None else mask.float())
+    return _Xent.apply(logits, labels, m)[0]

@@ -20,8 +20,11 @@ Parameters are the reference's pytree as nested dicts of tensors:
 ``{"embed", "final_norm", "layers": {...}, "lm_head"}``, every ``layers``
 leaf stacked over a leading ``L`` axis.  The layer loop is a Python loop
 over ``L`` that indexes those leaves (views, no copies) in place of
-``lax.scan``; ``cfg.remat`` (a training option) has no effect on these
-inference paths.  The decode state's caches are stacked the same way.
+``lax.scan``.  ``cfg.remat`` checkpoints each layer of :func:`forward`
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) when
+autograd records it; :func:`prefill` and the decode steps never
+differentiate and ignore it.  The decode state's caches are stacked the
+same way.
 :func:`decode_step` leaves its input state as it was and returns a new one,
 as the reference does; the serving loops, which own their state and never
 reuse the old one, call :func:`_decode_step_into`, which writes the caches
@@ -32,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -43,6 +47,7 @@ from repro_torch.models.layers import (
     embed_init,
     init_mlp,
     init_norm,
+    sinusoidal_positions,
     softmax_xent,
 )
 
@@ -173,9 +178,7 @@ def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings (B, S, d).  ``frontend_embeds`` keeps the reference's
-    signature; the VLM frontend comes with its slice, so it is unused here.
-    No position table is added: the attention families use RoPE and RWKV6
-    no positions (the reference adds whisper's sinusoids here)."""
+    signature; the VLM frontend comes with its slice, so it is unused here."""
     return params["embed"][tokens.long()]
 
 
@@ -188,16 +191,38 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _remat(cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """Whether :func:`forward` checkpoints its layers: ``cfg.remat`` is set,
+    autograd records, and no ``torch.func`` transform is tracking ``x``.
+    Under ``torch.func`` (the vmapped FL executor's ``vmap(grad(...))``)
+    ``torch.utils.checkpoint`` raises, as functorch does not support saved
+    tensor hooks; there the layers run plain, with the same numbers and
+    more memory.  A transform is detected by the layer input being a
+    functorch-wrapped tensor."""
+    return (cfg.remat and torch.is_grad_enabled()
+            and not torch._C._functorch.is_functorch_wrapped_tensor(x))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             impl: str = "naive") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. tokens: (B, S). Returns (logits, aux_loss);
     ``aux`` is 0 for the supported families (MoE adds its router losses).
-    ``impl`` picks every mixer's route, as in :func:`prefill`."""
+    ``impl`` picks every mixer's route, as in :func:`prefill`.  Models
+    without RoPE that attend (a stripped whisper) add the reference's
+    sinusoidal positions; RWKV6 is position-free."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens, frontend_embeds)
+    if not cfg.use_rope and cfg.attention != "none":
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    remat = _remat(cfg, x)
     for i in range(cfg.n_layers):
-        x, _ = _seq_layer(cfg, impl, x, layer_params(params["layers"], i))
+        lp = layer_params(params["layers"], i)
+        if remat:
+            x = checkpoint(lambda h, lp: _seq_layer(cfg, impl, h, lp)[0], x, lp,
+                           use_reentrant=False)
+        else:
+            x, _ = _seq_layer(cfg, impl, x, lp)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -12,9 +12,23 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples" / "torch"
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The examples run thousands of small steps. With the suite's workers
+    sharing the cores, every intra-op thread team waits on descheduled
+    threads (``fl_end_to_end --arch yi-6b`` took 427 s that way against 3 s
+    alone); one thread keeps each example at its own cost.  The checks read
+    the printed report, not its digits."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _load(name):
@@ -97,3 +111,11 @@ def test_continuous_batching_runs_on_the_cpu(arch, capsys):
                                        "--requests", "3", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "completed=3" in out and "tokens=9" in out
+
+
+def test_train_lm_runs_on_the_cpu(tmp_path, capsys):
+    ckpt = str(tmp_path / "step_100.ckpt")
+    _load("train_lm").main(["--device", "cpu", "--steps", "100", "--batch", "8",
+                            "--seq", "32", "--ckpt", ckpt])
+    out = capsys.readouterr().out
+    assert "OK: loss" in out and f"checkpoint -> {ckpt}" in out

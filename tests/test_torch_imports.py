@@ -24,6 +24,7 @@ from repro_torch.core.imitation import augment_demonstrations, pretrain_qnet
 from repro_torch.core.qnet import init_qnet
 from repro_torch.data import FederatedData, dirichlet_partition, make_classification_data
 from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+from repro_torch.launch.train import train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -79,7 +80,12 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/mamba/ref.py",
                  "src/repro_torch/kernels/rwkv6/kernel.py",
                  "src/repro_torch/kernels/rwkv6/ops.py",
-                 "src/repro_torch/kernels/rwkv6/ref.py"):
+                 "src/repro_torch/kernels/rwkv6/ref.py",
+                 "src/repro_torch/optim/optimizers.py",
+                 "src/repro_torch/optim/schedules.py",
+                 "src/repro_torch/checkpoint/msgpack_ckpt.py",
+                 "src/repro_torch/models/flash_xla.py",
+                 "src/repro_torch/launch/train.py"):
         assert want in names
     for cu in ("pairwise_rank", "select_topk", "fleet_state", "flash_attention",
                "mamba", "rwkv6"):
@@ -98,8 +104,7 @@ def test_no_jax_and_no_reference_imports(path):
 # Public names of a reference module that its port may lack, each named in
 # ROADMAP.md: queued for a later slice (section 1) ...
 QUEUED = {
-    "launch/steps.py": {"make_optimizer", "make_train_step",      # item 3
-                        "params_struct", "opt_struct", "batch_specs",
+    "launch/steps.py": {"params_struct", "opt_struct", "batch_specs",
                         "decode_state_struct", "input_specs"},  # item 5
 }
 # ... or replaced by the port's design (section 2): name -> the port's name
@@ -192,6 +197,8 @@ def test_entry_points_refuse_missing_card(device):
     with pytest.raises(RuntimeError, match="cuda"):
         FLServer(FLConfig(n_devices=10, k_select=2), MLPTask(), _tiny_data(),
                  device=device)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train("yi-6b", steps=1, batch=1, seq=8, verbose=False, device=device)
 
 
 def test_cpu_is_explicit():

@@ -168,12 +168,10 @@ def test_attention_prefill_routes_match(arch):
     window = cfg.window if cfg.attention == "swa" else None
     want, (jk, _) = JA.attention_prefill(jp, jnp.asarray(x), cfg, window=window)
     tcfg = get_model_config(arch, smoke=True)
-    for impl in ("naive", "flash"):
+    for impl in ("naive", "flash", "blocked"):
         got, (tk, _) = A.attention_prefill(tp, _t(x), tcfg, window=window, impl=impl)
         np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=0)
         np.testing.assert_allclose(tk.numpy(), _np(jk), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        A.attention_prefill(tp, _t(x), tcfg, impl="blocked")
     with pytest.raises(ValueError, match="unknown attention impl"):
         A.attention_prefill(tp, _t(x), tcfg, impl="pallas")
 
