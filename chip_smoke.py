@@ -7,7 +7,8 @@ With no argument it runs every step below.  Given step names (``build``,
 ``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
 ``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
 ``path5_async``, ``vmapped``, ``path8_hierarchy``, ``path6_lm``,
-``path7_ssm``, ``path9_lm_fl``, ``obs``, ``path10_lm_train``) it builds
+``path7_ssm``, ``path9_lm_fl``, ``obs``, ``path10_lm_train``,
+``path11_zoo``) it builds
 every library, runs only
 those steps and ends with the summary line and the card line; the
 ``kernels`` line and the last line need the whole run.
@@ -49,8 +50,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    window in {None, 64, 1024}, ten cases at S = 4096 and 8192 (windows up
    to 4096), gemma-7b's Dh=256 (G=1, S in {129, 1000}), the tensor-core
    kernel's row layouts (G in {16, 64} at S in {7, 129}; G=5 with windows
-   of 1, 17 and 63 keys; Dh=120 at S in {65, 200, 1001}) and path 6's own
-   shapes (Yi-6B's prefill, h2o-danube's 5000-token windowed prefill), the
+   of 1, 17 and 63 keys; Dh=120 at S in {65, 200, 1001}), path 6's own
+   shapes (Yi-6B's prefill, h2o-danube's 5000-token windowed prefill) and
+   path 11's (whisper-medium's bidirectional encoder: B=4, S=1500, 16
+   heads over 16, Dh=64; OLMoE's prefill: B=4, S=1024, 16 over 16,
+   Dh=128), the
    largest error reported by route (bf16 with Dh <= 128 takes the
    tensor-core kernel, the rest the CUDA-core one);
    ``mamba`` over T in {1, 2, 7, 64, 65, 1000} x inner in {64, 100, 1600} x
@@ -78,8 +82,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    timed from a checkout of it by ``scripts/pairwise_rank_precision.py``),
    for ``flash_attention`` ``scaled_dot_product_attention`` (``is_causal``,
    or a boolean causal-and-window mask) at Yi-6B's prefill (B=4, S=1024),
-   S=8192 and S=32768, h2o-danube's (window 4096; S=5000 and 8192) and
-   Hymba's attention (window 1024; path 7's B=4, S=2048 and B=1, S=8192);
+   S=8192 and S=32768, h2o-danube's (window 4096; S=5000 and 8192),
+   Hymba's attention (window 1024; path 7's B=4, S=2048 and B=1, S=8192),
+   whisper's encoder (``is_causal=False``) and OLMoE's prefill;
    ``mamba`` and ``rwkv6`` at path 7's
    shapes and at T=8192 (B=1), beside the plain version and the bound (no
    one PyTorch call computes either);
@@ -165,7 +170,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     the vmapped round's cohort equal to the sequential one's and its bf16
     params within two bf16 ulps at each leaf's largest magnitude; host s a
     round and peak memory), then one FedRank round under
-    ``torch.profiler``;
+    ``torch.profiler``; then one FedRank round of olmoe-1b-7b at its
+    published width (64 experts, top 8), 1 layer, under both executors
+    (the same cohort; every leaf, the fp32 router and norms too, within
+    two bf16 ulps at its largest magnitude);
 13. ``obs``: observed runs (``FLConfig.observe``) at paths 1 and 5's sizes,
     sync FedRank rounds on ``high-churn`` and async FedRank aggregations on
     ``trace-synthetic-week``, each beside the unobserved run in turns (host
@@ -188,7 +196,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     ``train()`` on the card reduces the loss.  Every kernel counter stays 0:
     the kernels have no backward, and training takes the plain routes, as
     the reference's does;
-15. a ``summary`` line (each step's status, host seconds, its phases'
+15. path 11, ``path11_zoo``, the rest of the zoo: (a) smoke configs in
+    fp32 of olmoe-1b-7b, phi3.5-moe, whisper-medium and internvl2-76b (with
+    random frontend embeddings) on the CPU and the card from the same
+    weights: forward, prefill and 8 decode steps' logits, aux and the
+    loss's gradients; the MoE's sort dispatch against the dense one on the
+    card (1, 2 and 4 groups); one ``LMTask`` FedRank round of olmoe-smoke
+    under both executors on both devices (one cohort); (b) serving at the
+    published widths in bf16 through ``serve()``, batch 4, 32 new tokens:
+    olmoe-1b-7b at full depth (prompt 1024; 16 ``flash_attention``
+    launches), phi3.5-moe at 4 layers (prompt 1024; 4), whisper-medium at
+    full depth (1500 frames, prompt 32; 24 bidirectional and 24 causal
+    launches) and internvl2-76b at 2 layers (256 image and 768 text
+    tokens; 2), every launch on the tensor-core kernel; prefill s, decode
+    tokens/s, peak memory and the MoE prefill's dropped fraction; a
+    ``ContinuousBatcher`` on olmoe-1b-7b (4 slots, 8 requests; no kernel);
+    (c) 3 ``make_train_step`` steps of each at its published width, bf16,
+    remat, on one batch (the loss falls from step 1 to step 3; the MoE
+    aux nonzero): olmoe-1b-7b at 4 layers and phi3.5-moe at 1 (AdamW, 4 x
+    1024), whisper-medium at full depth (AdamW, 4 x 1024 over 1500
+    frames), internvl2-76b at 1 layer (SGD with momentum, 2 x (256 +
+    512)); ms a step and peak memory; no kernel launches;
+16. a ``summary`` line (each step's status, host seconds, its phases'
     seconds, largest error and device idle shares; printed also when a step
     fails, before the error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
@@ -233,7 +262,11 @@ magnitude on the gradients (each route rounds its attention output to bf16
 once, and an entry rounded to a neighbouring value moves everything
 downstream by that ulp); remat on and off: equal losses, gradients within
 one bf16 ulp at each leaf's largest magnitude (the same kernels, run
-again).  ``mamba`` and ``rwkv6`` (fp32 in and
+again).  The zoo (path 11): CPU and card within 1e-4 on the logits and aux
+and on each gradient over its leaf's largest magnitude (fp32 smoke
+configs); the MoE's lossless sort dispatch within 1e-5 of the dense one
+(the reference test's bound); path 9's olmoe round, vmapped against
+sequential, every leaf within two bf16 ulps at its largest magnitude.  ``mamba`` and ``rwkv6`` (fp32 in and
 out; the plain version in fp32 on the same inputs): every output and final
 state within 2e-5 * max(1, max |ref|) of its row, the (batch, channel) row
 of the scan and the (batch, head) row of the WKV (fp32 sums over the state
@@ -2026,12 +2059,16 @@ def flash_plain(torch, q, k, v, causal, window):
                       for j in range(k.shape[2])], dim=2)
 
 
-# The shapes path 6 gives the kernel: Yi-6B's prefill (batch 4 x 1024, 32
-# query heads over 4 KV heads, Dh=128) and h2o-danube's (1 x 5000 past its
-# 4096 window, 32 over 8, Dh=120), both causal.
+# The shapes paths 6 and 11 give the kernel: Yi-6B's prefill (batch 4 x
+# 1024, 32 query heads over 4 KV heads, Dh=128) and h2o-danube's (1 x 5000
+# past its 4096 window, 32 over 8, Dh=120), both causal; then path 11's.
 FA_MAIN_CASES = {
     "yi_prefill": dict(b=4, s=1024, kv=4, g=8, dh=128, causal=True, window=None),
     "danube_prefill": dict(b=1, s=5000, kv=8, g=4, dh=120, causal=True, window=4096),
+    # path 11's: whisper-medium's encoder (bidirectional over 1500 frames,
+    # 16 heads over 16, Dh=64) and OLMoE's prefill (4 x 1024, 16 over 16, Dh=128)
+    "whisper_encoder": dict(b=4, s=1500, kv=16, g=1, dh=64, causal=False, window=None),
+    "olmoe_prefill": dict(b=4, s=1024, kv=16, g=1, dh=128, causal=True, window=None),
 }
 
 
@@ -2105,33 +2142,36 @@ def phase_flash_vs_plain(torch):
 
 
 def phase_flash_timings(torch, card):
-    """Kernel, plain version, bound and SDPA at the serving shapes.  SDPA is
-    one PyTorch call for the same function: ``is_causal`` for a causal mask,
-    a boolean (S, S) ``attn_mask`` (causal and window) for a sliding window;
+    """Kernel, plain version, bound and SDPA at the serving shapes (whisper's
+    encoder bidirectional, the rest causal).  SDPA is one PyTorch call for
+    the same function: ``is_causal`` for a causal mask or none, a boolean
+    (S, S) ``attn_mask`` (causal and window) for a sliding window;
     its largest difference from the kernel is printed beside its time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
 
     rows = {}
-    for label, b, s, h, kv, dh, window, dtype, plain in (
-            ("yi_prefill", 4, 1024, 32, 4, 128, None, torch.bfloat16, True),
-            ("yi_prefill_fp32", 4, 1024, 32, 4, 128, None, torch.float32, True),
-            ("yi_s8192", 1, 8192, 32, 4, 128, None, torch.bfloat16, True),
-            ("yi_s32768", 1, 32768, 32, 4, 128, None, torch.bfloat16, False),
-            ("danube_prefill", 1, 5000, 32, 8, 120, 4096, torch.bfloat16, True),
-            ("danube_s8192", 1, 8192, 32, 8, 120, 4096, torch.bfloat16, True),
-            ("hymba_prefill", 4, 2048, 25, 5, 64, 1024, torch.bfloat16, True),
-            ("hymba_attn_s8192", 1, 8192, 25, 5, 64, 1024, torch.bfloat16, True)):
+    for label, b, s, h, kv, dh, window, dtype, plain, causal in (
+            ("yi_prefill", 4, 1024, 32, 4, 128, None, torch.bfloat16, True, True),
+            ("yi_prefill_fp32", 4, 1024, 32, 4, 128, None, torch.float32, True, True),
+            ("yi_s8192", 1, 8192, 32, 4, 128, None, torch.bfloat16, True, True),
+            ("yi_s32768", 1, 32768, 32, 4, 128, None, torch.bfloat16, False, True),
+            ("danube_prefill", 1, 5000, 32, 8, 120, 4096, torch.bfloat16, True, True),
+            ("danube_s8192", 1, 8192, 32, 8, 120, 4096, torch.bfloat16, True, True),
+            ("hymba_prefill", 4, 2048, 25, 5, 64, 1024, torch.bfloat16, True, True),
+            ("hymba_attn_s8192", 1, 8192, 25, 5, 64, 1024, torch.bfloat16, True, True),
+            ("whisper_encoder", 4, 1500, 16, 16, 64, None, torch.bfloat16, True, False),
+            ("olmoe_prefill", 4, 1024, 16, 16, 128, None, torch.bfloat16, True, True)):
         q, k, v = flash_inputs(torch, b, s, h, kv, dh, dtype, seed=s + h)
-        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True,
+        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=causal,
                                                          window=window))
-        plain_ms = (cuda_ms(torch, lambda: flash_plain(torch, q, k, v, True, window))
+        plain_ms = (cuda_ms(torch, lambda: flash_plain(torch, q, k, v, causal, window))
                     if plain else None)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window is None:
             def library():
-                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                       enable_gqa=True)
         else:
             pos = torch.arange(s, device="cuda")
@@ -2143,10 +2183,10 @@ def phase_flash_timings(torch, card):
                                                       enable_gqa=True)
         lib_ms = cuda_ms(torch, library)
         lib_diff = float((library().transpose(1, 2).float()
-                          - flash_attention_cuda(q, k, v, causal=True, window=window)
+                          - flash_attention_cuda(q, k, v, causal=causal, window=window)
                           .float()).abs().max())
-        bound, bound_by = flash_bound_ms(b, s, h, kv, dh, True, window, q.element_size())
-        rows[label] = dict(b=b, s=s, h=h, kv=kv, dh=dh, window=window,
+        bound, bound_by = flash_bound_ms(b, s, h, kv, dh, causal, window, q.element_size())
+        rows[label] = dict(b=b, s=s, h=h, kv=kv, dh=dh, window=window, causal=causal,
                            dtype=str(dtype).replace("torch.", ""),
                            route=flash_route(dtype, dh), ms=ms,
                            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
@@ -3311,6 +3351,396 @@ def phase_train_driver(torch):
 
 
 # ---------------------------------------------------------------------------
+# path 11: the rest of the zoo (MoE, whisper's encoder-decoder, the VLM)
+# ---------------------------------------------------------------------------
+
+# Serving at the published widths, bf16: (arch, depth or None for full
+# depth, batch, prompt tokens, new tokens).  Depth is cut where the weights
+# would not leave room on one 80 GB card: phi3.5-moe (41.9 B parameters) to
+# 4 of 32 layers (5.46 B), internvl2-76b (70.6 B) to 2 of 80 (3.81 B).
+# InternVL2's prompt is its 256 image tokens and 768 text tokens; whisper's
+# a 32-token prompt over 1500 encoder frames.
+ZOO_SERVE = (("olmoe-1b-7b", None, 4, 1024, 32), ("phi3.5-moe", 4, 4, 1024, 32),
+             ("whisper-medium", None, 4, 32, 32), ("internvl2-76b", 2, 4, 768, 32))
+# Training, bf16, remat, 3 steps on one batch (the loss must fall): (arch,
+# depth, batch, text tokens, optimizer).  AdamW takes ~32 bytes a
+# parameter at its peak (path 10: 38.8 GB for Yi-6B's 1.22 B), so
+# internvl2-76b's one layer (2.96 B, 2.10 B of them its embedding and head)
+# takes SGD with momentum (14 bytes a parameter).
+ZOO_TRAIN = (("olmoe-1b-7b", 4, 4, 1024, "adamw"), ("phi3.5-moe", 1, 4, 1024, "adamw"),
+             ("whisper-medium", None, 4, 1024, "adamw"), ("internvl2-76b", 1, 2, 512, "sgd"))
+ZOO_ADAMW_LR = 3e-4          # the peak of the reference's make_optimizer
+ZOO_SGD_LR = 1e-2
+ZOO_ARCHS = ("olmoe-1b-7b", "phi3.5-moe", "whisper-medium", "internvl2-76b")
+MOE_SORT_DENSE_TOL = 1e-5    # lossless sort vs dense dispatch, fp32 (the reference test's)
+
+
+def zoo_cfg(arch, layers, smoke=False):
+    import dataclasses
+
+    from repro_torch.configs import get_model_config
+
+    cfg = get_model_config(arch, smoke=smoke)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def frontend_embeds(torch, cfg, batch, device, seed=0):
+    """Random frontend embeddings in the config's dtype (the frontends are
+    stubs): whisper's frames or the VLM's image tokens; None otherwise."""
+    from repro_torch.models.transformer import torch_dtype
+
+    if cfg.frontend is None:
+        return None
+    n = cfg.enc_seq if cfg.enc_dec else cfg.frontend.n_tokens
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn((batch, n, cfg.frontend.embed_dim), generator=gen).to(
+        device=device, dtype=torch_dtype(cfg.dtype))
+
+
+@contextlib.contextmanager
+def moe_prefill_drops():
+    """Record ``dropped_fraction`` of every MoE call over more than one
+    position (the prefill's; decode routes one token a sequence)."""
+    from repro_torch.models import moe
+
+    seen, apply = [], moe.apply_moe
+
+    def recorded(p, x, cfg):
+        y, aux = apply(p, x, cfg)
+        if x.shape[1] > 1:
+            seen.append(aux["dropped_fraction"])
+        return y, aux
+
+    moe.apply_moe = recorded
+    try:
+        yield seen
+    finally:
+        moe.apply_moe = apply
+
+
+def phase_cpu_agreement_zoo(torch):
+    """Smoke configs in fp32, the same weights and inputs on the CPU and the
+    card: ``forward`` (naive), ``prefill`` (the kernels' route) and 8 decode
+    steps, and the ``loss_fn`` gradients (the blocked route) of the four
+    families, within LM_TOL (logits, aux) and CPU_CARD_TRAIN_TOL (each
+    gradient over its leaf's largest magnitude); the MoE's sort dispatch
+    against the dense one on the card (lossless: within
+    MOE_SORT_DENSE_TOL, dropped 0); one ``LMTask`` FedRank round of
+    olmoe-smoke under both executors on both devices: one cohort, params
+    within CPU_CARD_TOL."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.fl._tree import tree_leaves, tree_unflatten
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+
+    for arch in ZOO_ARCHS:
+        cfg = zoo_cfg(arch, None, smoke=True)
+        params = T.init_params(0, cfg, "cpu")
+        prompt, n = 24, 32
+        tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, n))
+        fe_cpu = frontend_embeds(torch, cfg, 2, "cpu", seed=1)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_to(params, dev)
+            t = torch.as_tensor(tok, device=dev)
+            fe = None if fe_cpu is None else fe_cpu.to(dev)
+            full, aux = T.forward(p, cfg, t, fe)
+            logits, st = T.prefill(p, cfg, t[:, :prompt], fe, max_len=n + 8, impl="flash")
+            steps = [logits.cpu()]
+            for i in range(prompt, n):
+                lg, st = T.decode_step(p, cfg, st, t[:, i])
+                steps.append(lg.cpu())
+            live = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(p)]
+            batch = {"tokens": t, "labels": t.roll(-1, 1), "frontend_embeds": fe}
+            loss, _ = T.loss_fn(tree_unflatten(p, live), cfg, batch, impl="blocked")
+            grads = torch.autograd.grad(loss, live)
+            out[dev] = ([full.cpu(), aux.cpu()] + steps, [g.cpu() for g in grads],
+                        float(loss))
+        logit_err = max(float((a - b).abs().max()) for a, b in zip(out["cpu"][0],
+                                                                    out["cuda"][0]))
+        grad_err = max(leaf_errors(torch, out["cuda"][1], out["cpu"][1]))
+        require(logit_err <= LM_TOL and grad_err <= CPU_CARD_TRAIN_TOL,
+                (arch, logit_err, grad_err))
+        emit(phase="cpu_vs_card", model=cfg.name, prompt=prompt, decode_steps=n - prompt,
+             frontend=None if fe_cpu is None else list(fe_cpu.shape),
+             aux_card=float(out["cuda"][0][1]), loss_card=out["cuda"][2],
+             max_abs_logit_err=logit_err, max_grad_err_over_leaf_max=grad_err,
+             tolerance={"logits": LM_TOL, "grads": CPU_CARD_TRAIN_TOL})
+
+    # the sort dispatch against the dense one on the card
+    errs = {}
+    for groups in (1, 2, 4):
+        base = zoo_cfg("olmoe-1b-7b", None, smoke=True)
+        cfg_s = dataclasses.replace(base, moe=dataclasses.replace(base.moe, n_groups=groups))
+        cfg_d = dataclasses.replace(base, moe=dataclasses.replace(base.moe, dispatch="dense"))
+        gen = torch.Generator(device="cuda").manual_seed(groups)
+        p = moe_lib.init_moe(gen, cfg_s, torch.float32)
+        x = torch.randn((2, 32, base.d_model), generator=gen, device="cuda")
+        ys, aux_s = moe_lib.apply_moe(p, x, cfg_s)
+        yd, aux_d = moe_lib.apply_moe(p, x, cfg_d)
+        errs[groups] = float((ys - yd).abs().max())
+        require(float(aux_s["dropped_fraction"]) == 0.0
+                and errs[groups] <= MOE_SORT_DENSE_TOL, ("moe sort vs dense", groups, errs))
+    emit(phase="moe_sort_vs_dense", device="cuda", max_abs_err_by_groups=errs,
+         tolerance=MOE_SORT_DENSE_TOL)
+
+    # one LMTask FedRank round of olmoe-smoke, both executors, both devices
+    from repro_torch.fl import FLConfig, FLServer, LMTask, build_policy
+
+    cfg = zoo_cfg("olmoe-1b-7b", None, smoke=True)
+    data = lm_fl_data(cfg.vocab_size, 8, 28, 16, 32)
+    res, init = {}, None
+    for ex in ("sequential", "vmapped"):
+        for dev in ("cpu", "cuda"):
+            fl = FLConfig(n_devices=8, k_select=2, rounds=1, l_ep=1, lr=0.3, seed=0,
+                          executor=ex)
+            srv = FLServer(fl, LMTask(cfg, seq_len=16), data, device=dev)
+            if init is None:
+                init = (srv.global_params, srv._last_acc)
+            else:
+                srv.global_params, srv._last_acc = tree_to(init[0], dev), init[1]
+            r = srv.run_round(build_policy("fedrank", k=2, seed=0, device=dev))
+            res[(ex, dev)] = (r.selected.tolist(),
+                              [l.cpu() for l in tree_leaves(srv.global_params)], r.test_loss)
+    cohorts = {f"{ex}/{dev}": v[0] for (ex, dev), v in res.items()}
+    err = max(max(float((a - b).abs().max()) for a, b in zip(res[(ex, "cpu")][1],
+                                                             res[(ex, "cuda")][1]))
+              for ex in ("sequential", "vmapped"))
+    require(len({tuple(c) for c in cohorts.values()}) == 1, ("MoE FL cohorts", cohorts))
+    require(err <= CPU_CARD_TOL and all(math.isfinite(v[2]) for v in res.values()),
+            ("MoE FL params", err))
+    emit(phase="cpu_vs_card", run="lm_fl/olmoe-1b-7b-smoke/fedrank", cohorts=cohorts,
+         max_abs_param_err=err, tolerance=CPU_CARD_TOL)
+
+
+def phase_zoo_serving(torch):
+    """Serving at the published widths in bf16 through ``serve()`` (prefill
+    by ``impl="flash"``, then ``gen`` decode steps), each model alone with
+    every count at 0 before it: one ``flash_attention`` launch a layer
+    (whisper: 24 bidirectional over its 1500 frames and 24 causal), every
+    one on the tensor-core kernel; then a ``ContinuousBatcher`` on
+    olmoe-1b-7b at full depth (4 slots, 8 requests, prompts of 16-64
+    tokens, 8 new tokens each; no attention kernel: prompts go through
+    decode).  Prints prefill s, decode tokens/s, the peak memory and the
+    MoE prefill's dropped fraction (the mean over its layers)."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatcher, Request
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    reset_counts()                                # every count to 0
+    runs = {}
+    for arch, layers, batch, prompt, gen in ZOO_SERVE:
+        cfg = zoo_cfg(arch, layers)
+        want = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
+        before = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with moe_prefill_drops() as drops:
+            stats = serve(arch, smoke=False, batch=batch, prompt_len=prompt, gen=gen,
+                          verbose=False, device="cuda", layers=layers)
+        launched = {k: n - before[k] for k, n in read_counts().items()}
+        require(all(math.isfinite(v) and v > 0 for v in stats.values()), (arch, stats))
+        require(launched["flash_attention"] == want
+                and launched["flash_attention_mma"] == want,
+                (arch, "flash launches", launched, want))
+        require(sum(n for k, n in launched.items() if not k.startswith("flash")) == 0,
+                (arch, launched))
+        dropped = [float(d) for d in drops]
+        require(len(dropped) == (cfg.n_layers if cfg.moe else 0), (arch, len(dropped)))
+        runs[arch] = launched["flash_attention"]
+        emit(phase="serve", path="zoo_serving", model=arch, layers=cfg.n_layers,
+             enc_layers=cfg.n_enc_layers if cfg.enc_dec else None,
+             params=cfg.param_count(), batch=batch, prompt=prompt, gen=gen,
+             frontend_tokens=(cfg.enc_seq if cfg.enc_dec else cfg.frontend.n_tokens)
+             if cfg.frontend else None, **stats,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             flash_attention_launches=launched["flash_attention"],
+             flash_attention_mma_launches=launched["flash_attention_mma"],
+             moe_prefill_dropped_fraction=statistics.fmean(dropped) if dropped else None,
+             moe_prefill_dropped_by_layer=dropped or None)
+        torch.cuda.empty_cache()
+
+    cfg = zoo_cfg("olmoe-1b-7b", None)
+    params = T.init_params(0, cfg, "cuda")
+    rng = np.random.default_rng(0)
+    batcher = ContinuousBatcher(cfg, params, batch_slots=4, max_len=128, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 65, size=8)]
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(rid=i, prompt=p, max_new=8))
+    before = read_counts()
+    st = batcher.run()
+    launched = {k: n - before[k] for k, n in read_counts().items()}
+    require(st.completed == 8 and st.tokens_out == 8 * 8, st)
+    require(all(len(r.out) == 8 and all(0 <= t < cfg.vocab_size for t in r.out)
+                for r in batcher.completed))
+    require(all(n == 0 for n in launched.values()), ("batcher launched", launched))
+    runs["continuous_batching"] = launched["flash_attention"]
+    counts = read_counts()                        # read just after
+    emit(phase="serve", path="zoo_serving", model=cfg.name, mode="continuous_batching",
+         slots=4, requests=8, prompt_lens=[len(p) for p in prompts], max_new=8,
+         completed=st.completed, decode_steps=st.decode_steps, tokens_out=st.tokens_out,
+         elapsed_s=st.elapsed_s, tok_per_s=st.tok_per_s, mean_ttft_s=st.mean_ttft_s,
+         mean_latency_s=st.mean_latency_s, flash_attention_launches=launched["flash_attention"])
+    emit(phase="main_launches", path="zoo_serving", launches=counts, per_run=runs)
+    del params, batcher
+    torch.cuda.empty_cache()
+    return counts, runs
+
+
+def phase_zoo_train(torch):
+    """3 ``make_train_step`` steps (the default ``blocked`` route,
+    ``remat=True``) of each model at its published width in bf16, on one
+    batch from ``lm_batches`` (so the loss must fall from step 1 to step 3),
+    whisper and the VLM with frontend embeddings in the batch (whisper's
+    encoder and cross-attention run their backward); the MoE models' aux
+    must be nonzero.  ms a step and the peak memory.  No kernel launches:
+    training takes the plain routes."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import sgd
+
+    before = read_counts()
+    rows = {}
+    for arch, layers, batch, seq, opt_name in ZOO_TRAIN:
+        cfg = zoo_cfg(arch, layers)
+        require(cfg.remat and cfg.dtype == "bfloat16", cfg.name)
+        opt = (train_recipe(ZOO_ADAMW_LR, 3) if opt_name == "adamw"
+               else sgd(ZOO_SGD_LR, momentum=0.9))
+        params = T.init_params(0, cfg, "cuda")
+        state = opt.init(params)
+        b = next(train_batches(cfg, batch, seq, "cuda"))
+        fe = frontend_embeds(torch, cfg, batch, "cuda")
+        if fe is not None:
+            b["frontend_embeds"] = fe
+        step = make_train_step(cfg, opt)
+        losses, auxes, ms = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                (arch, losses))
+        require((min(auxes) > 0) if cfg.moe else (max(auxes) == 0), (arch, auxes))
+        rows[arch] = dict(layers=cfg.n_layers, params=cfg.param_count(), losses=losses,
+                          aux=auxes, ms_per_step=ms, peak_memory_gb=peak)
+        emit(phase="lm_train", path="zoo_train", model=arch, layers=cfg.n_layers,
+             enc_layers=cfg.n_enc_layers if cfg.enc_dec else None, dtype=cfg.dtype,
+             remat=cfg.remat, impl="blocked", optimizer=opt_name,
+             lr=ZOO_ADAMW_LR if opt_name == "adamw" else ZOO_SGD_LR,
+             batch=batch, seq=seq, frontend=None if fe is None else list(fe.shape),
+             params=cfg.param_count(), losses=losses, aux=auxes, ms_per_step=ms,
+             step_peak_gb=peak)
+        del params, state, b, fe, step
+        torch.cuda.empty_cache()
+    launched = {k: n - before[k] for k, n in read_counts().items()}
+    require(all(n == 0 for n in launched.values()), ("a kernel launched in training",
+                                                      launched))
+    return rows
+
+
+def named_leaves(tree, prefix=""):
+    """{"layers/moe/router": tensor, ...} in ``tree_leaves`` order."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(named_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+# Path 9's MoE round: olmoe-1b-7b at its published width (64 experts, top 8),
+# depth cut to 1 layer (0.63 B parameters), with path 9's fleet and data
+LM_FL_MOE = dict(LM_FL, arch="olmoe-1b-7b", layers=1)
+
+
+def phase_lm_fl_moe(torch):
+    """One FedRank round (a fresh Q-net) of olmoe-1b-7b as the FL global
+    model under the sequential and the vmapped executor from one init: the
+    same cohort and probe set, every leaf within LM_FL_ULPS bf16 ulps at
+    its largest magnitude (the fp32 router and norms too: they train from
+    bf16 activations), exactly 2 ``select_topk`` launches a round; host s
+    and peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl import FLConfig, FLServer, LMTask, build_policy
+
+    c = LM_FL_MOE
+    cfg = dataclasses.replace(get_model_config(c["arch"]), n_layers=c["layers"])
+    data = lm_fl_data(cfg.vocab_size, c["n_devices"], c["seqs_per_device"], c["seq"],
+                      c["test_seqs"])
+    task = LMTask(cfg, seq_len=c["seq"])
+    reset_counts()                                # every count to 0
+    results, servers, init = {}, {}, None
+    for ex in ("sequential", "vmapped"):          # one init: the same seed
+        fl = FLConfig(n_devices=c["n_devices"], k_select=c["k"], rounds=1, l_ep=c["l_ep"],
+                      local_batch=c["batch"], lr=c["lr"], seed=0, executor=ex)
+        srv = FLServer(fl, task, data, device="cuda")
+        if init is None:                          # the fp32 leaves' init, for their update
+            init = {k: v.clone() for k, v in named_leaves(srv.global_params).items()
+                    if v.dtype == torch.float32}
+        pol = build_policy("fedrank", k=c["k"], seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        res = srv.run_round(pol)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in read_counts().items()}
+        check_round(srv, res, c["k"])
+        require(launched["select_topk"] == 2 and math.isfinite(res.test_loss),
+                (ex, launched, res.test_loss))
+        results[ex] = dict(cohort=res.selected.tolist(), probe=res.probe_set.tolist(),
+                           test_loss=res.test_loss, host_s=res.host_time_s,
+                           peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           launches=launched)
+        servers[ex] = srv
+    leaves = {}                                   # name -> (diff, unit, diff / unit)
+    seq = named_leaves(servers["sequential"].global_params)
+    vm = named_leaves(servers["vmapped"].global_params)
+    for name, a in seq.items():
+        d = float((a.float() - vm[name].float()).abs().max())
+        unit = bf16_ulp(torch, a)
+        leaves[name] = (d, unit, d / unit if unit else (0.0 if d == 0 else math.inf))
+    worst = max(r[2] for r in leaves.values())
+    # the fp32 leaves' round updates, beside their differences
+    fp32_updates = {n: [float((seq[n] - t).abs().max()), leaves[n][0]]
+                    for n, t in init.items()}
+    counts = read_counts()                        # read just after
+    emit(phase="lm_fl", policy="fedrank", model=cfg.name, layers=cfg.n_layers,
+         experts=cfg.moe.n_experts, top_k=cfg.moe.top_k, params=cfg.param_count(),
+         **results, max_param_diff=max(r[0] for r in leaves.values()),
+         max_diff_in_ulps=worst,
+         worst_leaves=sorted(([n] + list(r) for n, r in leaves.items()),
+                             key=lambda r: -r[3])[:4],
+         fp32_leaf_update_and_diff=fp32_updates,
+         tolerance=f"vmapped vs sequential: every leaf within {LM_FL_ULPS} bf16 ulps at "
+                   "its largest magnitude, the fp32 ones (the router, the norms) too: "
+                   "their gradients come through bf16 activations, and the router's "
+                   "sums 512 tokens' terms a step that nearly cancel")
+    require(results["sequential"]["cohort"] == results["vmapped"]["cohort"]
+            and results["sequential"]["probe"] == results["vmapped"]["probe"], results)
+    require(worst <= LM_FL_ULPS, ("MoE vmapped params off", worst))
+    emit(phase="main_launches", path="lm_fl_moe", launches=counts)
+    del servers
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # observability
 # ---------------------------------------------------------------------------
 
@@ -3451,7 +3881,7 @@ STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attentio
          "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
          "path3_baselines", "path4_trace", "path5_async", "vmapped",
          "path8_hierarchy", "path6_lm", "path7_ssm", "path9_lm_fl", "obs",
-         "path10_lm_train")
+         "path10_lm_train", "path11_zoo")
 
 
 def run_phases(torch, card, only=()):
@@ -3549,8 +3979,8 @@ def run_phases(torch, card, only=()):
             phase_full_width_agreement(torch)
 
     # ---- 5-13: the paths, each with its own launch counts --------------
-    if any(want(name) for name in STEPS if name.startswith("path") and name != "path10_lm_train"
-           or name in ("vmapped", "obs")):
+    if any(want(name) for name in STEPS if name.startswith("path")
+           and name not in ("path10_lm_train", "path11_zoo") or name in ("vmapped", "obs")):
         t0 = time.perf_counter()
         data = small_data(64_000, 1000)
         emit(phase="main_data", samples=64_000, clients=1000,
@@ -3592,13 +4022,19 @@ def run_phases(torch, card, only=()):
             timed("decode_profile", phase_ssm_decode_profile, torch)
     if want("path9_lm_fl"):
         with step("path9_lm_fl"):
-            lm_fl_counts, _ = phase_lm_fl_path(torch)
+            lm_fl_counts, _ = timed("yi", phase_lm_fl_path, torch)
+            lm_fl_moe_counts = timed("olmoe", phase_lm_fl_moe, torch)
     if want("obs"):
         with step("obs"):
             phase_obs(torch, data)
     if want("path10_lm_train"):
         with step("path10_lm_train"):
             lm_train_counts = phase_lm_train_path(torch)
+    if want("path11_zoo"):
+        with step("path11_zoo"):
+            timed("cpu_vs_card", phase_cpu_agreement_zoo, torch)
+            zoo_counts, zoo_runs = timed("serving", phase_zoo_serving, torch)
+            timed("train", phase_zoo_train, torch)
     if only:
         return None
 
@@ -3624,6 +4060,7 @@ def run_phases(torch, card, only=()):
                                          for k, r in topk_host.items()},
              launches_by_path={"path8_hierarchy": hier_counts["select_topk"],
                                "path9_lm_fl": lm_fl_counts["select_topk"],
+                               "path9_lm_fl_moe": lm_fl_moe_counts["select_topk"],
                                **{f"path8:{k}": r["select_topk_launches_per_round"]
                                   for k, r in hier_runs.items()
                                   if "select_topk_launches_per_round" in r}},
@@ -3657,7 +4094,13 @@ def run_phases(torch, card, only=()):
                           fa_main, {k: fa_main[k]
                                     for k in ("b", "s", "h", "kv", "dh", "window", "dtype")}),
              main_shape_route=fa_main["route"], max_abs_err_by_route=fa_err,
-             launches_by_run=lm_runs, launches_ssm_serving=ssm_counts["flash_attention"]),
+             launches_by_run=lm_runs, launches_ssm_serving=ssm_counts["flash_attention"],
+             launches_zoo_serving=zoo_counts["flash_attention"],
+             launches_by_zoo_run=zoo_runs,
+             zoo_shapes={k: {f: fa_timings[k][f] for f in
+                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "causal")}
+                         for k in ("whisper_encoder", "olmoe_prefill")}),
         dict(kernel_entry("mamba", "src/repro_torch/csrc/mamba.cu",
                           "src/repro/kernels/mamba/kernel.py:68",
                           ssm_counts["mamba"], scan_err, ssm_timings["hymba_prefill"],

@@ -3,12 +3,18 @@ scheduler.
 
     PYTHONPATH=src python examples/torch/continuous_batching.py --arch rwkv6-3b
     PYTHONPATH=src python examples/torch/continuous_batching.py --device cpu
+    PYTHONPATH=src python examples/torch/continuous_batching.py --arch olmoe-1b-7b
+
+Every architecture of the zoo runs; whisper-medium decodes against random
+audio frames, one clip a slot (its encoder runs once, when the batcher is
+made).
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_model_config
 from repro_torch.launch.scheduler import ContinuousBatcher, Request
@@ -26,8 +32,13 @@ def main(argv=None) -> None:
 
     cfg = get_model_config(args.arch, smoke=True)
     params = T.init_params(0, cfg, args.device)
+    frames = None
+    if cfg.enc_dec:
+        gen = torch.Generator(device=args.device).manual_seed(0)
+        frames = torch.randn((args.slots, cfg.enc_seq, cfg.frontend.embed_dim),
+                             generator=gen, device=args.device).to(T.torch_dtype(cfg.dtype))
     batcher = ContinuousBatcher(cfg, params, batch_slots=args.slots, max_len=128,
-                                device=args.device)
+                                device=args.device, frontend_embeds=frames)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 16))

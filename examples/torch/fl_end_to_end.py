@@ -2,17 +2,18 @@
 online FL with every baseline, time/energy-to-accuracy report (the paper's
 full pipeline, as ``examples/fl_end_to_end.py`` runs it on the JAX package).
 
-Any architecture the port runs can be the *global model* via --arch (its
-reduced variant trains as a tiny LM across clients: yi-6b, h2o-danube-3-4b,
-hymba-1.5b, rwkv6-3b, ...), or the default MLP classification task (the
-paper's vision-task stand-in).
+A text-only architecture of the zoo can be the *global model* via --arch
+(its reduced variant trains as a tiny LM across clients: yi-6b,
+h2o-danube-3-4b, hymba-1.5b, rwkv6-3b, olmoe-1b-7b, phi3.5-moe, ...), or the
+default MLP classification task (the paper's vision-task stand-in).
 
     PYTHONPATH=src python examples/torch/fl_end_to_end.py --rounds 25
     PYTHONPATH=src python examples/torch/fl_end_to_end.py --arch rwkv6-3b --rounds 8
     PYTHONPATH=src python examples/torch/fl_end_to_end.py --device cpu --rounds 2
 
-The mixture-of-experts models, whisper and InternVL2 are refused by
-``check_supported``: they come with ROADMAP.md section 1, item 4.
+whisper-medium and internvl2-76b are refused: their forward needs frontend
+embeddings (audio frames, image tokens) that the synthetic LM data has
+none of, as in the reference's example.
 """
 from __future__ import annotations
 
@@ -38,7 +39,6 @@ from repro_torch.fl import (
     available_scenarios,
     build_policy,
 )
-from repro_torch.models.transformer import check_supported
 
 POLICY_NAMES = ("fedavg", "afl", "tifl", "oort", "favor", "fedmarl", "fedrank")
 # sizes of the run (the reference example's)
@@ -91,11 +91,11 @@ def main(argv=None) -> None:
 
     if args.arch:
         cfg = get_model_config(args.arch, smoke=True)
-        try:
-            check_supported(cfg)
-        except NotImplementedError as e:
-            raise SystemExit(f"fl_end_to_end: --arch {args.arch} is refused: {e} "
-                             "(ROADMAP.md section 1, item 4)") from None
+        if cfg.frontend is not None:
+            raise SystemExit(
+                f"fl_end_to_end: --arch {args.arch} is refused: its forward needs "
+                f"frontend embeddings ({cfg.frontend.kind} frontend), and the "
+                "synthetic LM data holds text tokens only")
         task = LMTask(cfg, seq_len=32)
         data = build_lm_fl_data(cfg, args.devices)
         lr = 0.5

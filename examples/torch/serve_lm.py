@@ -3,6 +3,11 @@ prefill through the kernels, then the decode loop.
 
     PYTHONPATH=src python examples/torch/serve_lm.py --arch rwkv6-3b --gen 48
     PYTHONPATH=src python examples/torch/serve_lm.py --arch hymba-1.5b --device cpu
+    PYTHONPATH=src python examples/torch/serve_lm.py --arch whisper-medium --device cpu
+
+Every architecture of the zoo serves: the MoE models (olmoe-1b-7b,
+phi3.5-moe), whisper-medium over random audio frames and internvl2-76b
+after random image tokens too.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ tensors.
 The JAX reference keeps parameters as (nested) dicts of arrays, the same
 layout as the port: the Q-net and ``MLPTask`` as flat dicts (``w1, b1, ...``
 with ``w`` shaped ``(in, out)``), the LM as ``{"embed", "final_norm",
-"layers": {...}, "lm_head"}`` with every ``layers`` leaf stacked over L.  A
+"layers": {...}, "lm_head"}`` with every ``layers`` leaf stacked over L
+(and the zoo's other leaves in place: an MoE layer's ``moe`` experts,
+whisper's ``encoder`` and ``cross_attn``, a ``frontend_proj``).  A
 conversion is a leaf-wise copy that keeps each leaf's dtype:
 
     q = params_from_numpy({k: np.asarray(v) for k, v in jax_q.items()}, "cpu")
@@ -73,13 +75,12 @@ def decode_state_from_numpy(state: Any, device: DeviceLike = None):
     test can run the port's decode from the reference's prefill.  Its
     layers may hold ``"kv"`` (ring K/V caches), ``"mamba"`` (Hymba's Mamba
     state) and ``"rwkv"`` (RWKV6's state), each a named tuple of stacked
-    arrays with the port's field order."""
+    arrays with the port's field order; whisper's ``cross_kv`` is a tuple
+    of two stacked arrays (k, v), each (L, B, enc_seq, KV, Dh)."""
     from repro_torch.models.attention import KVCache
     from repro_torch.models.ssm import MambaState, RWKVState
     from repro_torch.models.transformer import DecodeState
 
-    if state.cross_kv is not None:
-        raise NotImplementedError("cross-attention caches come with whisper's slice")
     dev = resolve_device(device)
     kinds = {"kv": KVCache, "mamba": MambaState, "rwkv": RWKVState}
     layers = {}
@@ -91,4 +92,9 @@ def decode_state_from_numpy(state: Any, device: DeviceLike = None):
             raise ValueError(f"{name}: fields {leaves._fields}, expected "
                              f"{kinds[name]._fields}")
         layers[name] = kinds[name](*(to_tensor(a, dev) for a in leaves))
-    return DecodeState(layers, to_tensor(state.step, dev))
+    cross_kv = None
+    if state.cross_kv is not None:
+        cross_kv = tuple(to_tensor(a, dev) for a in state.cross_kv)
+        if len(cross_kv) != 2:
+            raise ValueError(f"cross_kv holds {len(cross_kv)} arrays, expected (k, v)")
+    return DecodeState(layers, to_tensor(state.step, dev), cross_kv)

@@ -53,11 +53,15 @@ class ContinuousBatcher:
     """B decode slots multiplexing a stream of requests on ``device`` (the
     card unless ``device="cpu"``), where ``params`` must lie.  Sampling at
     ``temperature`` > 0 draws from a ``torch.Generator`` seeded with
-    ``seed``; 0 is greedy."""
+    ``seed``; 0 is greedy.  Whisper needs ``frontend_embeds`` (B, enc_seq,
+    d), one slot's audio frames each: its encoder runs once here, and the
+    cross-attention K/V it leaves in the state are read by every step and
+    kept across slot resets (a slot's requests share its audio)."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 frontend_embeds: Optional[torch.Tensor] = None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the batcher "
@@ -68,7 +72,8 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.temperature = temperature
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = T.init_decode_state(params, cfg, batch_slots, max_len)
+        self.state = T.init_decode_state(params, cfg, batch_slots, max_len,
+                                         frontend_embeds=frontend_embeds)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_prompt_left: List[int] = [0] * batch_slots
         self.cur_token = np.zeros((batch_slots,), np.int32)
@@ -86,7 +91,8 @@ class ContinuousBatcher:
         with leading (L, B) dims (K/V and per-layer cache lengths, the Mamba
         state and conv buffer, RWKV6's WKV state and both token shifts), as
         the reference's ``zero_slot``, so the new request starts fresh while
-        other slots keep decoding."""
+        other slots keep decoding.  Whisper's cross-attention K/V are not
+        per-step state and stay as they are, as in the reference."""
         for cache in self.state.layers.values():
             for leaf in cache:
                 if leaf.dim() >= 2 and leaf.shape[:2] == (self.cfg.n_layers, self.b):

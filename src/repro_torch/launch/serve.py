@@ -1,7 +1,9 @@
 """Batched serving: prefill + decode loop with temperature sampling.
 
-``--arch`` names any model of the attention, SSM and hybrid families:
-yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b, rwkv6-3b, hymba-1.5b.
+``--arch`` names any model of the zoo: yi-6b, gemma-7b, minitron-4b,
+h2o-danube-3-4b, rwkv6-3b, hymba-1.5b, olmoe-1b-7b, phi3.5-moe,
+whisper-medium, internvl2-76b.  Whisper and InternVL2 get random frontend
+embeddings (the frontends are stubs, as in the reference).
 CPU-feasible with reduced configs (``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
@@ -13,10 +15,13 @@ on the card at full width:
         --batch 4 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full \\
         --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe --full \\
+        --layers 4 --batch 4 --prompt-len 1024 --gen 32
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -47,9 +52,15 @@ def sample(logits: torch.Tensor, temperature: float,
 def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 64, temperature: float = 0.8,
           seed: int = 0, verbose: bool = True,
-          device: DeviceLike = None) -> Dict[str, float]:
+          device: DeviceLike = None, layers: Optional[int] = None) -> Dict[str, float]:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens from the synthetic
     stream, then decode ``gen`` tokens each; returns the reference's stats.
+    ``layers`` cuts the model's depth (the decoder's; whisper's encoder
+    keeps its own), for a model whose full depth does not fit the device.
+
+    A model with a frontend gets random embeddings in the config's dtype,
+    as in the reference: (batch, n, embed_dim), n the image tokens of the
+    VLM (which count toward the cache's length) or whisper's encoder frames.
 
     Prefill goes through the kernels (``impl="flash"``): flash attention,
     and for Hymba and RWKV6 the mamba selective scan and the rwkv6 WKV.
@@ -67,17 +78,26 @@ def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
     """
     dev = resolve_device(device)
     cfg = get_model_config(arch, smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = T.init_params(seed, cfg, dev)
+    fe = None
+    if cfg.frontend is not None:
+        n = cfg.frontend.n_tokens if not cfg.enc_dec else cfg.enc_seq
+        fe = torch.randn((batch, n, cfg.frontend.embed_dim),
+                         generator=torch.Generator(device=dev).manual_seed(seed),
+                         device=dev).to(T.torch_dtype(cfg.dtype))
     stream = make_lm_stream(n_tokens=prompt_len * batch + 16,
                             vocab=cfg.vocab_size, seed=seed)
     prompts = np.stack([stream[i * prompt_len:(i + 1) * prompt_len]
                         for i in range(batch)])
-    max_len = prompt_len + gen
+    max_len = prompt_len + gen + (cfg.frontend.n_tokens
+                                  if cfg.frontend and not cfg.enc_dec else 0)
     sampler = torch.Generator(device=dev).manual_seed(seed)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = T.prefill(params, cfg, torch.as_tensor(prompts, device=dev),
+    logits, state = T.prefill(params, cfg, torch.as_tensor(prompts, device=dev), fe,
                               max_len=max_len, impl="flash", last_only=True)
     logits = logits[:, 0]
     _sync(dev)
@@ -111,8 +131,11 @@ def serve(arch: str = "yi-6b", smoke: bool = True, batch: int = 4,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-6b",
-                    help="yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b, rwkv6-3b "
-                         "or hymba-1.5b")
+                    help="yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b, rwkv6-3b, "
+                         "hymba-1.5b, olmoe-1b-7b, phi3.5-moe, whisper-medium or "
+                         "internvl2-76b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many (decoder) layers")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4)
@@ -124,7 +147,7 @@ def main() -> None:
     args = ap.parse_args()
     serve(args.arch, smoke=args.smoke, batch=args.batch,
           prompt_len=args.prompt_len, gen=args.gen,
-          temperature=args.temperature, device=args.device)
+          temperature=args.temperature, device=args.device, layers=args.layers)
 
 
 if __name__ == "__main__":

@@ -39,7 +39,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, impl: str = "blocked
     they were; the metrics stay device tensors, so a step never waits for
     the host.  ``impl`` is the attention route: ``"blocked"`` (the default,
     as in the reference) or ``"naive"``; ``"flash"`` raises, its kernels
-    have no backward.  ``cfg.remat`` checkpoints each layer."""
+    have no backward.  ``cfg.remat`` checkpoints each layer.  A batch's
+    ``frontend_embeds`` (whisper's frames, the VLM's image embeddings) go
+    through to the loss with it, and an MoE model's router losses are part
+    of the loss (``aux``)."""
 
     def train_step(params, opt_state, batch):
         live = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(params)]

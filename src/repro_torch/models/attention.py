@@ -55,7 +55,10 @@ class KVCache(NamedTuple):
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                   lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+                   lead: Tuple[int, ...] = (), *, cross: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+    """``wq``/``wk``/``wv``/``wo``; ``cross`` (whisper's cross-attention)
+    has the same leaves, as in the reference."""
     d = cfg.d_model
     return {
         "wq": dense_init_on(gen, d, cfg.q_dim, dtype, lead),

@@ -199,11 +199,13 @@ def sinusoidal_positions(max_len: int, d: int,
 
 
 def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
-    """Sinusoidal position vector (d,) at a scalar position tensor."""
-    ang = pos.float() * _sin_div(d, pos.device)
-    out = torch.zeros((d,), dtype=torch.float32, device=pos.device)
-    out[0::2] = torch.sin(ang)
-    out[1::2] = torch.cos(ang)
+    """Sinusoidal position vectors ``pos.shape + (d,)`` at a tensor of
+    positions: (d,) at a scalar, (B, d) at a (B,) batch of positions (the
+    reference's ``jax.vmap(sinusoidal_at, (0, None))``)."""
+    ang = pos.float()[..., None] * _sin_div(d, pos.device)
+    out = torch.zeros(pos.shape + (d,), dtype=torch.float32, device=pos.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang)
     return out
 
 

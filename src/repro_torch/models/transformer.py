@@ -1,34 +1,35 @@
-"""The LM of the reference's model zoo: the attention, SSM and hybrid
-families.
+"""The LM of the reference's model zoo: one parameterized decoder (and an
+optional encoder) covering every family.
 
-One parameterized decoder built from
-
-* ``dense``: GQA attention (full or sliding-window) + (Ge)GLU / relu2 FFN
-  (yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b);
+* ``dense`` / ``vlm``: GQA attention (full or sliding-window) + (Ge)GLU /
+  relu2 FFN (yi-6b, gemma-7b, minitron-4b, h2o-danube-3-4b); internvl2-76b
+  prepends its frontend's image embeddings to the text;
+* ``moe`` (olmoe-1b-7b, phi3.5-moe): GQA attention + a top-k expert FFN
+  (:mod:`repro_torch.models.moe`), whose router losses make ``aux``;
 * ``ssm`` (rwkv6-3b): RWKV6 time mix (data-dependent decay) + channel mix,
   no positions;
 * ``hybrid`` (hymba-1.5b): sliding-window attention and Mamba heads in
-  parallel on the same normed input, averaged, then the FFN.
-
-Other families are refused where a model is built or run
-(:func:`init_params`, :func:`forward`, :func:`prefill`,
-:func:`init_decode_state`), naming the slice of the port that brings them:
-mixture-of-experts layers, whisper's encoder-decoder and internvl2's
-frontend.
+  parallel on the same normed input, averaged, then the FFN;
+* ``audio`` (whisper-medium): a bidirectional encoder over the frontend's
+  frames and a causal decoder with cross-attention, both with sinusoidal
+  positions.
 
 Parameters are the reference's pytree as nested dicts of tensors:
-``{"embed", "final_norm", "layers": {...}, "lm_head"}``, every ``layers``
-leaf stacked over a leading ``L`` axis.  The layer loop is a Python loop
-over ``L`` that indexes those leaves (views, no copies) in place of
-``lax.scan``.  ``cfg.remat`` checkpoints each layer of :func:`forward`
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) when
-autograd records it; :func:`prefill` and the decode steps never
-differentiate and ignore it.  The decode state's caches are stacked the
-same way.
+``{"embed", "final_norm", "layers": {...}, "lm_head"}``, plus
+``"encoder": {"layers", "final_norm"}`` for the encoder-decoder and
+``"frontend_proj"`` where the frontend's width is not d_model; every
+``layers`` leaf is stacked over a leading ``L`` axis.  The layer loop is a
+Python loop over ``L`` that indexes those leaves (views, no copies) in
+place of ``lax.scan``.  ``cfg.remat`` checkpoints each layer of
+:func:`forward`, the encoder's too (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``), when autograd records it;
+:func:`prefill` and the decode steps never differentiate and ignore it.
+The decode state's caches are stacked the same way.
 :func:`decode_step` leaves its input state as it was and returns a new one,
 as the reference does; the serving loops, which own their state and never
 reuse the old one, call :func:`_decode_step_into`, which writes the caches
-in place.
+in place.  Whisper's cross-attention K/V (``DecodeState.cross_kv``) are
+read-only and shared by both.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_mlp,
@@ -47,35 +49,24 @@ from repro_torch.models.layers import (
     embed_init,
     init_mlp,
     init_norm,
+    sinusoidal_at,
     sinusoidal_positions,
     softmax_xent,
 )
 
 Params = Dict[str, Any]
 
-MOE_SLICE = ("the MoE / encoder-decoder / frontend slice (models/moe.py, "
-             "whisper's encoder and cross-attention, internvl2's frontend)")
-
 
 class DecodeState(NamedTuple):
     layers: Any                      # {"kv": KVCache, "mamba": MambaState,
     #                                  "rwkv": RWKVState} of (L, B, ...) tensors
     step: torch.Tensor               # (B,) int32: tokens processed per sequence
-    cross_kv: Optional[Any] = None   # whisper: stacked (k, v) from encoder
+    cross_kv: Optional[Any] = None   # whisper: stacked (k, v) from encoder,
+    #                                  each (L, B, enc_seq, KV, Dh)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the slice of the port that brings
-    ``cfg``'s family, unless it is a family the port runs."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not "
-                                  f"ported yet; they come with {MOE_SLICE}")
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is not ported "
-                                  f"yet; it comes with {MOE_SLICE}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend.kind} frontend is "
-                                  f"not ported yet; it comes with {MOE_SLICE}")
+    """Raise ``ValueError`` for an attention kind no family has."""
     if cfg.attention not in ("full", "swa", "hybrid", "none"):
         raise ValueError(f"{cfg.name}: unknown attention kind {cfg.attention!r}")
 
@@ -99,6 +90,33 @@ def layer_params(layers: Params, i: int) -> Params:
 # ===========================================================================
 
 
+def _init_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                 dev: torch.device, n: int, *, cross: bool) -> Params:
+    """``n`` stacked layers (the reference's ``_init_layer`` under
+    ``jax.vmap``): norms, the mixer, whisper's cross-attention when
+    ``cross``, and the FFN or the experts."""
+    lead = (n,)
+    layers: Params = {
+        "norm1": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
+        "norm2": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
+    }
+    if cfg.attention == "none":  # rwkv
+        layers["time_mix"] = ssm_lib.init_rwkv_time_mix(gen, cfg, dtype, lead)
+        layers["channel_mix"] = ssm_lib.init_rwkv_channel_mix(gen, cfg, dtype, lead)
+        return layers
+    layers["attn"] = attn.init_attention(gen, cfg, dtype, lead)
+    if cfg.attention == "hybrid":
+        layers["mamba"] = ssm_lib.init_mamba(gen, cfg, dtype, lead)
+    if cross:
+        layers["cross_attn"] = attn.init_attention(gen, cfg, dtype, lead, cross=True)
+        layers["norm_cross"] = init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead)
+    if cfg.moe is not None:
+        layers["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
+    else:
+        layers["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype, lead)
+    return layers
+
+
 def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None) -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on the
     target device (the card unless ``device="cpu"``), drawn there.  The
@@ -107,31 +125,25 @@ def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None) -> Param
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
-    lead = (cfg.n_layers,)
-    layers: Params = {
-        "norm1": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
-        "norm2": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
-    }
-    if cfg.attention == "none":  # rwkv
-        layers["time_mix"] = ssm_lib.init_rwkv_time_mix(gen, cfg, dtype, lead)
-        layers["channel_mix"] = ssm_lib.init_rwkv_channel_mix(gen, cfg, dtype, lead)
-    else:
-        layers["attn"] = attn.init_attention(gen, cfg, dtype, lead)
-        if cfg.attention == "hybrid":
-            layers["mamba"] = ssm_lib.init_mamba(gen, cfg, dtype, lead)
-        layers["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype, lead)
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": init_norm(cfg.norm, cfg.d_model, torch.float32, dev),
-        "layers": layers,
+        "layers": _init_layers(gen, cfg, dtype, dev, cfg.n_layers, cross=cfg.enc_dec),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
+    if cfg.enc_dec:
+        p["encoder"] = {
+            "layers": _init_layers(gen, cfg, dtype, dev, cfg.n_enc_layers, cross=False),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, torch.float32, dev),
+        }
+    if cfg.frontend is not None and cfg.frontend.embed_dim != cfg.d_model:
+        p["frontend_proj"] = embed_init(gen, cfg.frontend.embed_dim, cfg.d_model, dtype)
     return p
 
 
 # ===========================================================================
-# Forward (training / prefill logits)
+# Layer bodies (sequence / prefill form)
 # ===========================================================================
 
 
@@ -147,12 +159,30 @@ def _mixer_impl(impl: str) -> str:
     return "cuda" if impl == "flash" else "xla"
 
 
-def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params
-               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN: (y, the MoE's aux loss, or None for a dense FFN)."""
+    if cfg.moe is not None:
+        y, moe_aux = moe_lib.apply_moe(lp["moe"], h, cfg)
+        return y, moe_lib.moe_aux_loss(moe_aux, cfg)
+    return apply_mlp(lp["mlp"], h, cfg.activation), None
+
+
+def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params,
+               causal: bool = True, enc_out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
     """One layer over a full sequence, from zero recurrent state: (x, the
-    layer's cache material): ``{"rwkv": RWKVState}`` for RWKV6, else
-    ``{"kv": (k, v)}`` and, for the hybrid, ``"mamba": MambaState``."""
+    layer's cache material, the layer's fp32 aux loss).  The cache material
+    is ``{"rwkv": RWKVState}`` for RWKV6, else ``{"kv": (k, v)}`` and, for
+    the hybrid, ``"mamba": MambaState``.  ``enc_out``: the encoder's output
+    that a decoder layer of the encoder-decoder cross-attends to;
+    ``causal=False`` is the encoder's bidirectional attention."""
     b = x.shape[0]
+    aux = _zero_aux(x)
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if cfg.attention == "none":
         st0 = ssm_lib.init_rwkv_state(cfg, b, x.device)
@@ -161,8 +191,8 @@ def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params
         x = x + y
         h = apply_norm(cfg.norm, lp["norm2"], x)
         y, last_cm = ssm_lib.rwkv_channel_mix(lp["channel_mix"], h, torch.zeros_like(h[:, 0]))
-        return x + y, {"rwkv": ssm_lib.RWKVState(st.wkv, st.shift_tm, last_cm)}
-    a_out, kv = attn.attention_prefill(lp["attn"], h, cfg, causal=True,
+        return x + y, {"rwkv": ssm_lib.RWKVState(st.wkv, st.shift_tm, last_cm)}, aux
+    a_out, kv = attn.attention_prefill(lp["attn"], h, cfg, causal=causal,
                                        window=_window(cfg), impl=impl)
     cache: Dict[str, Any] = {"kv": kv}
     if cfg.attention == "hybrid":
@@ -171,15 +201,100 @@ def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params
                                                    impl=_mixer_impl(impl))
         a_out = 0.5 * (a_out + m_out)
     x = x + a_out
+    if enc_out is not None:
+        h = apply_norm(cfg.norm, lp["norm_cross"], x)
+        c_out, _ = attn.attention_prefill(lp["cross_attn"], h, cfg,
+                                          causal=False, kv_from=enc_out)
+        x = x + c_out
     h = apply_norm(cfg.norm, lp["norm2"], x)
-    return x + apply_mlp(lp["mlp"], h, cfg.activation), cache
+    y, layer_aux = _ffn(cfg, lp, h)
+    if layer_aux is not None:
+        aux = aux + layer_aux
+    return x + y, cache, aux
+
+
+def _remat(cfg: ModelConfig, x: torch.Tensor, layers: Params) -> bool:
+    """Whether a stack checkpoints its layers: ``cfg.remat`` is set,
+    autograd records, and no ``torch.func`` transform is tracking the
+    stack's input or its weights.  Under ``torch.func`` (the vmapped FL
+    executor's ``vmap(grad(...))``) ``torch.utils.checkpoint`` raises, as
+    functorch does not support saved tensor hooks; there the layers run
+    plain, with the same numbers and more memory.  A transform is detected
+    by a functorch-wrapped tensor."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return (cfg.remat and torch.is_grad_enabled() and not wrapped(x)
+            and not wrapped(layers["norm1"]["scale"]))
+
+
+def _run_stack(cfg: ModelConfig, impl: str, causal: bool, x: torch.Tensor,
+               layers: Params, n: int, enc_out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n`` stacked layers over a full sequence: (x, the layers' aux summed
+    in fp32).  Each layer is checkpointed where :func:`_remat` says, its aux
+    with it."""
+    aux = _zero_aux(x)
+    remat = _remat(cfg, x, layers)
+
+    def body(h, lp, eo):
+        out, _, a = _seq_layer(cfg, impl, h, lp, causal, eo)
+        return out, a
+
+    for i in range(n):
+        lp = layer_params(layers, i)
+        if remat:
+            x, a = checkpoint(body, x, lp, enc_out, use_reentrant=False)
+        else:
+            x, a = body(x, lp, enc_out)
+        aux = aux + a
+    return x, aux
+
+
+def _frontend(params: Params, fe: torch.Tensor) -> torch.Tensor:
+    return fe @ params["frontend_proj"] if "frontend_proj" in params else fe
+
+
+def _need_frontend(cfg: ModelConfig, frontend_embeds: Optional[torch.Tensor]) -> None:
+    if frontend_embeds is None:
+        n = cfg.enc_seq if cfg.enc_dec else cfg.frontend.n_tokens
+        raise ValueError(f"{cfg.name} needs frontend_embeds of shape (B, {n}, "
+                         f"{cfg.frontend.embed_dim}): its {cfg.frontend.kind} "
+                         "frontend's output")
+
+
+def _encode(params: Params, cfg: ModelConfig, frontend_embeds: Optional[torch.Tensor],
+            impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whisper's encoder over the frames (+ sinusoidal positions),
+    bidirectional, then its final norm: (enc_out, the encoder's aux)."""
+    _need_frontend(cfg, frontend_embeds)
+    eo = _frontend(params, frontend_embeds)
+    eo = eo + sinusoidal_positions(eo.shape[1], cfg.d_model, eo.device)[None].to(eo.dtype)
+    enc = params["encoder"]
+    enc_out, aux = _run_stack(cfg, impl, False, eo, enc["layers"], cfg.n_enc_layers)
+    return apply_norm(cfg.norm, enc["final_norm"], enc_out), aux
+
+
+# ===========================================================================
+# Forward (training / prefill logits)
+# ===========================================================================
 
 
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token embeddings (B, S, d).  ``frontend_embeds`` keeps the reference's
-    signature; the VLM frontend comes with its slice, so it is unused here."""
-    return params["embed"][tokens.long()]
+    """Token embeddings (B, S, d); for the VLM, the frontend's embeddings
+    (through ``frontend_proj`` where present) come first: (B, n + S, d)."""
+    x = params["embed"][tokens.long()]
+    if cfg.frontend is not None and not cfg.enc_dec:
+        _need_frontend(cfg, frontend_embeds)
+        x = torch.cat([_frontend(params, frontend_embeds).to(x.dtype), x], dim=1)
+    return x
+
+
+def _positions(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Add the sinusoidal positions of a model that attends without RoPE
+    (whisper's decoder); RWKV6 is position-free."""
+    if not cfg.use_rope and cfg.attention != "none":
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    return x
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -191,47 +306,36 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _remat(cfg: ModelConfig, x: torch.Tensor) -> bool:
-    """Whether :func:`forward` checkpoints its layers: ``cfg.remat`` is set,
-    autograd records, and no ``torch.func`` transform is tracking ``x``.
-    Under ``torch.func`` (the vmapped FL executor's ``vmap(grad(...))``)
-    ``torch.utils.checkpoint`` raises, as functorch does not support saved
-    tensor hooks; there the layers run plain, with the same numbers and
-    more memory.  A transform is detected by the layer input being a
-    functorch-wrapped tensor."""
-    return (cfg.remat and torch.is_grad_enabled()
-            and not torch._C._functorch.is_functorch_wrapped_tensor(x))
-
-
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             impl: str = "naive") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits. tokens: (B, S). Returns (logits, aux_loss);
-    ``aux`` is 0 for the supported families (MoE adds its router losses).
-    ``impl`` picks every mixer's route, as in :func:`prefill`.  Models
-    without RoPE that attend (a stripped whisper) add the reference's
-    sinusoidal positions; RWKV6 is position-free."""
+    """Full-sequence logits. tokens: (B, S_text). For the VLM,
+    frontend_embeds (B, n_tok, fe_dim) are prepended. For whisper,
+    frontend_embeds are the encoder frames (B, enc_seq, d). Returns
+    (logits, aux_loss): the MoE layers' router losses summed in fp32 (0
+    for the other families).  ``impl`` picks every mixer's route, as in
+    :func:`prefill`."""
     check_supported(cfg)
-    x = embed_tokens(params, cfg, tokens, frontend_embeds)
-    if not cfg.use_rope and cfg.attention != "none":
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
-    remat = _remat(cfg, x)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        if remat:
-            x = checkpoint(lambda h, lp: _seq_layer(cfg, impl, h, lp)[0], x, lp,
-                           use_reentrant=False)
-        else:
-            x, _ = _seq_layer(cfg, impl, x, lp)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out, enc_aux = None, None
+    if cfg.enc_dec:
+        enc_out, enc_aux = _encode(params, cfg, frontend_embeds, impl)
+    x = embed_tokens(params, cfg, tokens, frontend_embeds if not cfg.enc_dec else None)
+    x = _positions(cfg, x)
+    x, aux = _run_stack(cfg, impl, True, x, params["layers"], cfg.n_layers, enc_out)
+    if enc_aux is not None:
+        aux = aux + enc_aux
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             impl: str = "naive") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token LM loss. batch: tokens (B,S), labels (B,S), optional
-    loss_mask."""
+    frontend_embeds, loss_mask.  The VLM's loss covers the text positions
+    only (after the frontend's tokens)."""
     logits, aux = forward(params, cfg, batch["tokens"], batch.get("frontend_embeds"),
                           impl=impl)
+    if cfg.frontend is not None and not cfg.enc_dec:
+        logits = logits[:, cfg.frontend.n_tokens:]
     xent = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return xent + aux, {"xent": xent, "aux": aux}
 
@@ -277,22 +381,46 @@ def _store(dst: Tuple[torch.Tensor, ...], src: Tuple[torch.Tensor, ...]) -> None
         d.copy_(s)
 
 
+def _cross_kv(params: Params, cfg: ModelConfig, enc_out: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross-attention K/V of ``enc_out``, stacked:
+    two (L, B, enc_seq, KV, Dh) tensors."""
+    b = enc_out.shape[0]
+    ca = params["layers"]["cross_attn"]
+    k = torch.stack([(enc_out @ ca["wk"][i]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+                     for i in range(cfg.n_layers)])
+    v = torch.stack([(enc_out @ ca["wv"][i]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+                     for i in range(cfg.n_layers)])
+    return k, v
+
+
 def init_decode_state(params: Params, cfg: ModelConfig, batch: int,
-                      max_len: int) -> DecodeState:
+                      max_len: int, frontend_embeds: Optional[torch.Tensor] = None,
+                      impl: str = "naive") -> DecodeState:
     """Allocate per-layer caches (stacked over L) on the params' device: ring
-    K/V caches, and the Mamba or RWKV6 recurrent states."""
+    K/V caches, and the Mamba or RWKV6 recurrent states.  For whisper, also
+    runs the encoder over ``frontend_embeds`` (by ``impl``'s route) and
+    precomputes the stacked cross-attention K/V."""
     check_supported(cfg)
     dev = params["embed"].device
+    cross_kv = None
+    if cfg.enc_dec:
+        enc_out, _ = _encode(params, cfg, frontend_embeds, impl)
+        cross_kv = _cross_kv(params, cfg, enc_out)
     return DecodeState(_zero_caches(cfg, batch, _cache_cap(cfg, max_len), dev),
-                       torch.zeros((batch,), dtype=torch.int32, device=dev))
+                       torch.zeros((batch,), dtype=torch.int32, device=dev), cross_kv)
 
 
 def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-                  cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+                  cache: Dict[str, Any],
+                  cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
     """One-token layer step. x: (B,1,d).  Writes the K/V ring in place and
-    returns the layer's new caches.  The SSM mixers go through the kernels'
+    returns the layer's new caches.  ``cross_kv``: this layer's (k, v) of
+    the encoder output (whisper).  The SSM mixers go through the kernels'
     ops (the reference's decode has no ``impl``: on the card the ops launch
-    the kernels, on the CPU they take the plain versions)."""
+    the kernels, on the CPU they take the plain versions); an MoE layer
+    routes the B tokens and drops its aux, as the reference does."""
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if cfg.attention == "none":
         st = cache["rwkv"]
@@ -308,8 +436,14 @@ def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
                                                  impl="cuda")
         a_out = 0.5 * (a_out + m_out)
     x = x + a_out
+    if cross_kv is not None:
+        h = apply_norm(cfg.norm, lp["norm_cross"], x)
+        c_out, _ = attn.attention_decode(lp["cross_attn"], h, cache["kv"], cfg,
+                                         cross_kv=cross_kv)
+        x = x + c_out
     h = apply_norm(cfg.norm, lp["norm2"], x)
-    return x + apply_mlp(lp["mlp"], h, cfg.activation), new
+    y, _ = _ffn(cfg, lp, h)
+    return x + y, new
 
 
 def _kv_into_ring(k: torch.Tensor, v: torch.Tensor, ck: torch.Tensor,
@@ -343,16 +477,26 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the reference's default math throughout (naive attention, the per-token
     Mamba scan, RWKV6's chunkwise einsums); ``"flash"`` runs the three
     kernels (``flash_attention``, the ``mamba`` selective scan, the
-    ``rwkv6`` WKV), one launch of each per layer that has that mixer.  The
-    primed state holds the ring K/V caches, and Hymba's Mamba or RWKV6's
-    recurrent state after the prompt."""
+    ``rwkv6`` WKV), one launch of each per layer that has that mixer
+    (whisper: one bidirectional launch per encoder layer, one causal per
+    decoder layer; cross-attention takes the naive route, as in the
+    reference).  The primed state holds the ring K/V caches, Hymba's Mamba
+    or RWKV6's recurrent state after the prompt, and whisper's stacked
+    cross-attention K/V.  The VLM's image tokens count as positions of the
+    prompt and of the cache."""
     check_supported(cfg)
-    x = embed_tokens(params, cfg, tokens, frontend_embeds)
+    enc_out, cross_kv = None, None
+    if cfg.enc_dec:
+        enc_out, _ = _encode(params, cfg, frontend_embeds, impl)
+        cross_kv = _cross_kv(params, cfg, enc_out)
+    x = embed_tokens(params, cfg, tokens, frontend_embeds if not cfg.enc_dec else None)
+    x = _positions(cfg, x)
     b, s_total = x.shape[0], x.shape[1]
     max_len = max_len or s_total
     layers = _zero_caches(cfg, b, _cache_cap(cfg, max(max_len, s_total)), x.device)
     for i in range(cfg.n_layers):
-        x, got = _seq_layer(cfg, impl, x, layer_params(params["layers"], i))
+        x, got, _ = _seq_layer(cfg, impl, x, layer_params(params["layers"], i),
+                               enc_out=enc_out)
         dst = _layer_caches(layers, i)
         for name, c in got.items():
             if name == "kv":
@@ -363,7 +507,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         layers["kv"].length.fill_(s_total)
     if last_only:
         x = x[:, -1:]
-    state = DecodeState(layers, torch.full((b,), s_total, dtype=torch.int32, device=x.device))
+    state = DecodeState(layers, torch.full((b,), s_total, dtype=torch.int32, device=x.device),
+                        cross_kv)
     return _logits(params, cfg, x), state
 
 
@@ -374,9 +519,12 @@ def _decode_step_into(params: Params, cfg: ModelConfig, state: DecodeState,
     callers that own their state (``launch/serve.py``,
     ``launch/scheduler.py``)."""
     x = params["embed"][token.long()][:, None, :]                    # (B,1,d)
+    if not cfg.use_rope and cfg.attention != "none":
+        x = x + sinusoidal_at(state.step, cfg.d_model)[:, None].to(x.dtype)
     for i in range(cfg.n_layers):
         cache = _layer_caches(state.layers, i)
-        x, new = _decode_layer(cfg, x, layer_params(params["layers"], i), cache)
+        ckv = None if state.cross_kv is None else (state.cross_kv[0][i], state.cross_kv[1][i])
+        x, new = _decode_layer(cfg, x, layer_params(params["layers"], i), cache, ckv)
         for name, c in new.items():
             if name == "kv":                  # K/V went into the ring in place
                 cache["kv"].length.copy_(c.length)
@@ -390,7 +538,8 @@ def decode_step(params: Params, cfg: ModelConfig, state: DecodeState,
                 token: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
     """token: (B,) int -> (logits (B, V), new state).  ``state`` is left as
     it was, as in the reference: the caches are cloned once, then
-    :func:`_decode_step_into` writes the clones."""
+    :func:`_decode_step_into` writes the clones.  Whisper's cross-attention
+    K/V are only read, so both states share them."""
     layers = {name: type(c)(*(t.clone() for t in c)) for name, c in state.layers.items()}
     return _decode_step_into(params, cfg, DecodeState(layers, state.step, state.cross_kv),
                              token)

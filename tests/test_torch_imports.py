@@ -4,8 +4,8 @@
   or anything of the JAX package ``repro``.
 * Entry points asked for ``cuda`` (or left to their default, the card) on a
   machine without one raise; they do not quietly run on the CPU.
-* Configurations the port has not reached yet are refused, naming the slice;
-  those a slice has ported run.
+* Configurations a slice of the port refused until it was ported now run:
+  every FL feature, every family of the LM zoo.
 * Every module of the port that has a counterpart in ``repro`` carries its
   public names (top-level ``def``/``class`` and ``__all__``), except names
   that ``ROADMAP.md`` queues for a later slice or records as replaced by the
@@ -327,21 +327,42 @@ def test_lm_serving_refuses_missing_card(device):
     ("internvl2-76b", "frontend"),
 ])
 def test_unported_lm_families_are_refused(arch, slice_name):
+    """The four families once refused here (the MoE models, whisper's
+    encoder-decoder, InternVL2's frontend) init, forward, prefill and
+    serve on the CPU when asked; ``check_supported`` refuses only an
+    unknown attention kind, and a model with a frontend refuses to run
+    without its embeddings, naming them."""
+    import dataclasses
+
     from repro_torch.configs import get_model_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
 
     cfg = get_model_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        T.init_params(0, cfg, "cpu")
-    yi = T.init_params(0, get_model_config("yi-6b", smoke=True), "cpu")
+    T.check_supported(cfg)
+    with pytest.raises(ValueError, match="attention kind"):
+        T.check_supported(dataclasses.replace(cfg, attention="linear"))
+    params = T.init_params(0, cfg, "cpu")
+    assert all(t.device.type == "cpu" for t in _leaves(params))
+    assert ("moe" in params["layers"]) == (slice_name == "MoE")
+    assert ("encoder" in params) == (slice_name == "encoder-decoder")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        T.prefill(yi, cfg, tokens)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        T.forward(yi, cfg, tokens)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        serve(arch, smoke=True, batch=1, prompt_len=4, gen=1, device="cpu")
+    fe = None
+    if cfg.frontend is not None:
+        n = cfg.enc_seq if cfg.enc_dec else cfg.frontend.n_tokens
+        fe = torch.zeros((1, n, cfg.frontend.embed_dim))
+        with pytest.raises(ValueError, match="frontend_embeds"):
+            T.forward(params, cfg, tokens)
+    logits, aux = T.forward(params, cfg, tokens, fe)
+    front = cfg.frontend.n_tokens if slice_name == "frontend" else 0
+    assert logits.shape == (1, front + 4, cfg.vocab_size)
+    assert (float(aux) > 0) == (slice_name == "MoE")
+    last, st = T.prefill(params, cfg, tokens, fe, max_len=8, impl="flash", last_only=True)
+    assert last.shape == (1, 1, cfg.vocab_size) and int(st.step[0]) == front + 4
+    assert (st.cross_kv is not None) == (slice_name == "encoder-decoder")
+    stats = serve(arch, smoke=True, batch=1, prompt_len=4, gen=1, verbose=False,
+                  device="cpu")
+    assert stats["decode_tok_per_s"] > 0
 
 
 def _scan_args(dtype=torch.float32, device="cpu"):

@@ -47,6 +47,8 @@ from repro_torch.models import transformer as T
 
 ATTN_ARCHS = ["yi-6b", "h2o-danube-3-4b", "minitron-4b", "gemma-7b"]
 SSM_ARCHS = ["rwkv6-3b", "hymba-1.5b"]
+# the MoE models, whisper's encoder-decoder and the VLM (frontend embeddings)
+ZOO_ARCHS = ["olmoe-1b-7b", "phi3.5-moe", "whisper-medium", "internvl2-76b"]
 
 
 def _np(x):
@@ -224,9 +226,20 @@ def test_attention_decode_ring_cache_matches():
 def _jit(cfg):
     """The reference's forward, prefill and decode step, jitted for ``cfg``
     (eager calls would trace and compile their layer scans on every call)."""
-    return (jax.jit(lambda p, t: JT.forward(p, cfg, t)),
-            jax.jit(lambda p, t, n: JT.prefill(p, cfg, t, max_len=n), static_argnums=2),
+    return (jax.jit(lambda p, t, fe=None: JT.forward(p, cfg, t, fe)),
+            jax.jit(lambda p, t, n, fe=None: JT.prefill(p, cfg, t, fe, max_len=n),
+                    static_argnums=2),
             jax.jit(lambda p, st, t: JT.decode_step(p, cfg, st, t)))
+
+
+def _frontend_embeds(cfg, b, seed=0):
+    """Random frontend embeddings (B, n, embed_dim) for whisper's encoder
+    (n frames) and the VLM (n image tokens), else None."""
+    if cfg.frontend is None:
+        return None
+    n = cfg.enc_seq if cfg.enc_dec else cfg.frontend.n_tokens
+    return np.random.default_rng(seed).normal(size=(b, n, cfg.frontend.embed_dim)
+                                              ).astype(np.float32)
 
 
 def _models(arch, seed=7, **overrides):
@@ -236,8 +249,11 @@ def _models(arch, seed=7, **overrides):
     return cfg, tcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + SSM_ARCHS + ZOO_ARCHS)
 def test_forward_prefill_decode_match_the_reference(arch):
+    """The MoE models' aux (their router losses) as the reference's too;
+    whisper and the VLM take frontend embeddings, and the VLM's image
+    tokens come first in the logits and in the cache."""
     cfg, tcfg, jp, tp = _models(arch)
     # past the smoke window (64) for the sliding-window models; RWKV6's
     # prefill of 128 tokens takes its chunked form (64-token chunks)
@@ -246,24 +262,30 @@ def test_forward_prefill_decode_match_the_reference(arch):
     if arch == "rwkv6-3b":
         s, half = 136, 128
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
+    fe = _frontend_embeds(cfg, 2)
+    jfe, tfe = (None, None) if fe is None else (jnp.asarray(fe), _t(fe))
+    off = cfg.frontend.n_tokens if cfg.frontend is not None and not cfg.enc_dec else 0
     j_forward, j_prefill, j_decode = _jit(cfg)
-    want, _ = j_forward(jp, jnp.asarray(tok))
-    got, aux = T.forward(tp, tcfg, _t(tok))
+    want, jaux = j_forward(jp, jnp.asarray(tok), jfe)
+    got, aux = T.forward(tp, tcfg, _t(tok), tfe)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4, rtol=0)
-    assert float(aux) == 0.0
-    jlog, jst = j_prefill(jp, jnp.asarray(tok[:, :half]), s)
+    if cfg.moe is None:
+        assert float(aux) == 0.0
+    else:
+        assert float(aux) > 0 and abs(float(aux) - float(jaux)) <= 1e-6
+    jlog, jst = j_prefill(jp, jnp.asarray(tok[:, :half]), s + off, jfe)
     jsteps = []
     for t in range(half, s):
         lg, jst = j_decode(jp, jst, jnp.asarray(tok[:, t]))
         jsteps.append(_np(lg))
     for impl in ("naive", "flash"):
-        tlog, tst = T.prefill(tp, tcfg, _t(tok[:, :half]), max_len=s, impl=impl)
+        tlog, tst = T.prefill(tp, tcfg, _t(tok[:, :half]), tfe, max_len=s + off, impl=impl)
         np.testing.assert_allclose(tlog.numpy(), _np(jlog), atol=1e-4, rtol=0)
         for t, ref in zip(range(half, s), jsteps):
             lg, tst = T.decode_step(tp, tcfg, tst, _t(tok[:, t]))
             np.testing.assert_allclose(lg.numpy(), ref, atol=1e-4, rtol=0)
-            np.testing.assert_allclose(lg.numpy(), _np(want[:, t]), atol=1e-4, rtol=0)
-        np.testing.assert_array_equal(tst.step.numpy(), np.full(2, s))
+            np.testing.assert_allclose(lg.numpy(), _np(want[:, off + t]), atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(tst.step.numpy(), np.full(2, off + s))
 
 
 def test_prefill_last_only_and_state_conversion():
@@ -332,7 +354,7 @@ def test_loss_matches():
 
 
 def test_init_params_layout_matches_the_reference():
-    for arch in ATTN_ARCHS + SSM_ARCHS:
+    for arch in ATTN_ARCHS + SSM_ARCHS + ZOO_ARCHS:
         cfg = jax_config(arch, smoke=True)
         want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
                             JT.init_params(jax.random.PRNGKey(0), cfg))

@@ -62,8 +62,8 @@ def _lm_data(vocab):
     return train, test, parts
 
 
-def _servers(executor="sequential", **kw):
-    jcfg, tcfg = jget_config("yi-6b", smoke=True), get_model_config("yi-6b", smoke=True)
+def _servers(executor="sequential", arch="yi-6b", **kw):
+    jcfg, tcfg = jget_config(arch, smoke=True), get_model_config(arch, smoke=True)
     train, test, parts = _lm_data(jcfg.vocab_size)
     fl_kw = dict(n_devices=8, k_select=2, rounds=1, l_ep=1, lr=0.3, seed=0, **kw)
     jsrv = jfl.FLServer(jfl.FLConfig(executor=executor, **fl_kw),
@@ -95,6 +95,18 @@ def test_lm_fl_round_equals_reference(executor):
     assert tr.executor == executor
     _assert_tree_close(jsrv.global_params, tsrv.global_params)
     np.testing.assert_allclose(tsrv.last_loss, jsrv.last_loss, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("executor", ["sequential", "vmapped"])
+def test_moe_lm_fl_round_equals_reference(executor):
+    """olmoe-1b-7b (smoke) as the global model: each client's loss carries
+    the router losses, and the vmapped executor routes every client's
+    tokens under ``vmap(grad(...))``."""
+    jsrv, tsrv = _servers(executor, arch="olmoe-1b-7b")
+    jr, = jsrv.run(jcore.RandomPolicy())
+    tr, = tsrv.run(tfl.build_policy("fedavg"))
+    _assert_round_matches(jr, tr)
+    _assert_tree_close(jsrv.global_params, tsrv.global_params)
 
 
 def test_lm_fl_fedrank_round_equals_reference():
