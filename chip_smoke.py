@@ -8,7 +8,7 @@ With no argument it runs every step below.  Given step names (``build``,
 ``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
 ``path5_async``, ``vmapped``, ``path8_hierarchy``, ``path6_lm``,
 ``path7_ssm``, ``path9_lm_fl``, ``obs``, ``path10_lm_train``,
-``path11_zoo``) it builds
+``path11_zoo``, ``path12_mesh``) it builds
 every library, runs only
 those steps and ends with the summary line and the card line; the
 ``kernels`` line and the last line need the whole run.
@@ -217,13 +217,33 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     1024), whisper-medium at full depth (AdamW, 4 x 1024 over 1500
     frames), internvl2-76b at 1 layer (SGD with momentum, 2 x (256 +
     512)); ms a step and peak memory; no kernel launches;
-16. a ``summary`` line (each step's status, host seconds, its phases'
+16. path 12, the mesh tooling: three dry-runs start first, each a
+    process of its own over a fake group (``python -m
+    repro_torch.launch.dryrun``: yi-6b ``train_4k`` and olmoe-1b-7b
+    ``decode_32k`` on the production 16x16 mesh, and path 10's Yi-6B step
+    on a 1x1 mesh), and run while this process (a) starts a one-rank NCCL
+    group and a 1x1 cuda mesh, lays Yi-6B, RWKV6-3B and Hymba-1.5B (full
+    width, 2 layers, bf16) out by ``param_specs`` as DTensors, and runs a
+    prefill of 4 x 1024 by the kernels (on the local shards through
+    ``local_map``) and 8 decode steps against the same run on plain
+    tensors (logits within one bf16 ulp, the same launches, host ms a
+    decode step of each), then 3 Yi-6B train steps (``impl="blocked"``, 4 x
+    1024) both ways (each loss within one bf16 ulp); (b) runs one path-1
+    FedRank round under ``VmappedExecutor(mesh=)`` the 1x1 mesh and under
+    ``mesh=None`` (equal cohorts, params within 1e-6, host s each); (c)
+    reads the dry-runs (each ``ok``, its cost counter exact on a sharded
+    MLP under this torch; per-device FLOPs, bytes, wire bytes, seconds and
+    roofline rows); (d) prints the 1x1 cost's compute and
+    memory terms beside the ms path 10 measured (or 5 steps measured here
+    when path 10 did not run);
+17. a ``summary`` line (each step's status, host seconds, its phases'
     seconds, largest error and device idle shares; printed also when a step
     fails, before the error),
     a ``kernels`` line (six entries, one per TPU kernel of the repo, each
     with its times and launches; ``select_topk`` adds its design and the op's
     time host included, ``pairwise_rank`` its loss-only route,
-    ``flash_attention`` the route its main shape took), then
+    ``flash_attention`` the route its main shape took; ``flash_attention``,
+    ``mamba`` and ``rwkv6`` their launches through the DTensor route), then
     the card line, then
     ``{"ok": true, ...}``.  The last four lines stay within ~12 KB, so that
     a tool that keeps only the end of the output keeps them.
@@ -3157,6 +3177,7 @@ def phase_lm_train_path(torch):
         r = runs[impl]
         require(r["losses"][-1] < r["losses"][0], (impl, r["losses"]))
         steady = statistics.median(r["ms"][1:])
+        _PATH10[f"{impl}_ms"] = steady
         emit(phase="lm_train", model=cfg.name, impl=impl, steps=c["steps"],
              losses=r["losses"], ms_per_step_median=steady, ms_first_step=r["ms"][0],
              ms_per_step=r["ms"], tokens_per_s=tokens / (steady / 1e3),
@@ -3823,6 +3844,295 @@ def phase_obs(torch, data):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 12: the mesh tooling (DeviceMesh, DTensor layouts, the dry-run)
+# ---------------------------------------------------------------------------
+
+MESH_MODELS = (("yi-6b", 2), ("rwkv6-3b", 2), ("hymba-1.5b", 2))
+MESH_PREFILL = dict(batch=4, prompt=1024, decode=8)
+MESH_TRAIN = dict(arch="yi-6b", layers=2, batch=4, seq=1024, steps=3)
+# the dry-runs, each a process of its own (a fake 256-rank group is the
+# default group there): the production mesh's two combinations, and path
+# 10's Yi-6B step on a 1x1 mesh for the counter's roofline terms
+MESH_DRYRUNS = {
+    "yi-6b/train_4k": ["--arch", "yi-6b", "--shape", "train_4k"],
+    "olmoe-1b-7b/decode_32k": ["--arch", "olmoe-1b-7b", "--shape", "decode_32k"],
+    "path10_step": ["--arch", "yi-6b", "--shape", "train_4k", "--mesh", "1x1",
+                    "--layers", str(LM_TRAIN["layers"]), "--batch", str(LM_TRAIN["batch"]),
+                    "--seq", str(LM_TRAIN["seq"])],
+}
+_PATH10: dict = {}           # path 10's measured ms a step, when it ran first
+
+
+def start_dryruns():
+    """Start every MESH_DRYRUNS process at once; (name -> (process, out path))."""
+    import os
+
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, argv in MESH_DRYRUNS.items():
+        out = out_dir / (name.replace("/", "_") + ".json")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out", str(out)],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), out)
+    return procs
+
+
+def mesh_run(torch, cfg, params, tokens, n_decode, mesh=None, rules=None):
+    """Prefill of ``tokens`` by the kernels (``impl="flash"``) and
+    ``n_decode`` decode steps (the SSM kernels), as DTensors under ``rules``
+    on ``mesh`` or as plain tensors: (every step's logits as plain tensors,
+    the launch counts, host ms a decode step)."""
+    from repro_torch.launch.sharding import (
+        P,
+        decode_state_specs,
+        distribute_params,
+    )
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import use_logical_rules
+
+    def plain(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    b, s = tokens.shape[0], tokens.shape[1] - n_decode
+    ctx = use_logical_rules(mesh, rules) if mesh is not None else contextlib.nullcontext()
+    reset_counts()                                # every count to 0
+    with torch.no_grad(), ctx:
+        prompt = tokens[:, :s]
+        if mesh is not None:
+            prompt = distribute_params(prompt, mesh, P(rules["batch"], None))
+        logits, state = T.prefill(params, cfg, prompt, max_len=s + n_decode, impl="flash",
+                                  last_only=True)
+        if mesh is not None:
+            from repro_torch.configs import ShapeConfig
+
+            shape = ShapeConfig("mesh", s + n_decode, b, "decode")
+            state = distribute_params(state, mesh, decode_state_specs(cfg, state, mesh, shape))
+        out, step_ms = [plain(logits[:, 0])], []
+        for i in range(n_decode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok = tokens[:, s + i]
+            if mesh is not None:
+                tok = distribute_params(tok, mesh, P(rules["batch"]))
+            lg, state = T._decode_step_into(params, cfg, state, tok)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            out.append(plain(lg))
+    # the first step carries the process's first-use costs
+    return out, read_counts(), statistics.median(step_ms[1:])
+
+
+def phase_mesh_models(torch, mesh):
+    """(a) Yi-6B, RWKV6-3B and Hymba-1.5B at full width, 2 layers, bf16, on
+    the 1x1 mesh: params laid out by ``param_specs`` and placed by
+    ``distribute_params``; prefill 4 x 1024 by the kernels (on each rank's
+    local shards through ``local_map``) and 8 decode steps, against the same
+    run on plain tensors: logits within one bf16 ulp at each step's largest
+    magnitude, the same launches, host ms a decode step of each (the
+    median of steps 2..8, each synchronised)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_model_config
+    from repro_torch.launch.sharding import build_rules, distribute_params, param_specs
+    from repro_torch.models import transformer as T
+
+    c = MESH_PREFILL
+    counts, out = {}, {}
+    for arch, layers in MESH_MODELS:
+        cfg = dataclasses.replace(get_model_config(arch), n_layers=layers)
+        params = T.init_params(0, cfg, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt"] + c["decode"]),
+                               device="cuda", generator=g)
+        want, want_n, plain_ms = mesh_run(torch, cfg, params, tokens, c["decode"])
+        rules = build_rules(cfg, mesh, ShapeConfig("mesh", c["prompt"] + c["decode"],
+                                                   c["batch"], "decode"))
+        dp = distribute_params(params, mesh, param_specs(cfg, params, mesh, "decode"))
+        got, got_n, dt_ms = mesh_run(torch, cfg, dp, tokens, c["decode"], mesh, rules)
+        errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
+        ulps = [bf16_ulp(torch, w) for w in want]
+        require(all(e <= u for e, u in zip(errs, ulps)), (arch, errs, ulps))
+        require(got_n == want_n and any(n > 0 for k, n in got_n.items()),
+                (arch, got_n, want_n))
+        counts[arch] = got_n
+        out[arch] = dict(plain_ms=plain_ms, dtensor_ms=dt_ms)
+        emit(phase="mesh_serve", model=arch, layers=layers, dtype=cfg.dtype,
+             batch=c["batch"], prompt=c["prompt"], decode_steps=c["decode"],
+             max_logit_err=max(errs), bf16_ulps=ulps, launches=got_n,
+             launches_plain=want_n, host_ms_per_decode_step_plain=plain_ms,
+             host_ms_per_decode_step_dtensor=dt_ms,
+             dtensor_added_host_ms_per_decode_step=dt_ms - plain_ms)
+        del params, dp, want, got
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_mesh_train(torch, mesh):
+    """(a) 3 ``make_train_step`` steps of Yi-6B (full width, 2 layers,
+    bf16, ``impl="blocked"``, 4 x 1024) on the 1x1 mesh (train-mode specs,
+    the optimizer state placed like the params) against the same steps on
+    plain tensors: each loss within one bf16 ulp; no kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_model_config
+    from repro_torch.launch.sharding import P, build_rules, distribute_params, param_specs
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import use_logical_rules
+
+    c = MESH_TRAIN
+    cfg = dataclasses.replace(get_model_config(c["arch"]), n_layers=c["layers"])
+    params = T.init_params(0, cfg, "cuda")
+    batches = list(zip(range(c["steps"]), train_batches(cfg, c["batch"], c["seq"], "cuda")))
+    rules = build_rules(cfg, mesh, ShapeConfig("mesh", c["seq"], c["batch"], "train"))
+    pspec = param_specs(cfg, params, mesh, "train")
+    reset_counts()                                # every count to 0
+    losses, ms = {}, {}
+    for route in ("plain", "dtensor"):
+        opt = make_optimizer()
+        step = make_train_step(cfg, opt, impl="blocked")
+        p, st = params, opt.init(params)
+        ctx = contextlib.nullcontext()
+        if route == "dtensor":
+            p = distribute_params(params, mesh, pspec)
+            st = distribute_params(st, mesh, {"mu": pspec, "nu": pspec, "step": P()})
+            ctx = use_logical_rules(mesh, rules)
+        losses[route], ms[route] = [], []
+        with ctx:
+            for _, batch in batches:
+                if route == "dtensor":
+                    batch = distribute_params(batch, mesh, {k: P(rules["batch"], None)
+                                                            for k in batch})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, st, m = step(p, st, batch)
+                loss = m["loss"]
+                losses[route].append(float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                                           else loss))
+                ms[route].append(1e3 * (time.perf_counter() - t0))
+        del p, st
+        torch.cuda.empty_cache()
+    ulps = [2.0 ** (math.floor(math.log2(abs(v))) - 7) for v in losses["plain"]]
+    errs = [abs(a - b) for a, b in zip(losses["dtensor"], losses["plain"])]
+    require(all(e <= u for e, u in zip(errs, ulps)), (losses, ulps))
+    counts = read_counts()
+    require(all(n == 0 for n in counts.values()), ("a kernel launched in training", counts))
+    emit(phase="mesh_train", model=cfg.name, layers=c["layers"], impl="blocked",
+         batch=c["batch"], seq=c["seq"], losses_plain=losses["plain"],
+         losses_dtensor=losses["dtensor"], max_loss_err=max(errs), bf16_ulps=ulps,
+         ms_per_step_plain=ms["plain"], ms_per_step_dtensor=ms["dtensor"], launches=counts)
+
+
+def phase_mesh_fl(torch, mesh, data):
+    """(b) One path-1 FedRank round (1000 devices, k=10, the MLP, the
+    vmapped executor) with ``mesh=`` the 1x1 mesh and with ``mesh=None``
+    from identical servers: equal probe sets and cohorts, params within
+    1e-6; host s of each."""
+    from repro_torch.fl import FLConfig, FLServer, MLPTask, build_policy
+    from repro_torch.fl.engine import VmappedExecutor
+
+    cfg = FLConfig(n_devices=1000, k_select=10, rounds=1, l_ep=5, scenario="high-churn",
+                   executor="vmapped")
+    res, srvs = {}, {}
+    for name, m in (("mesh", mesh), ("no_mesh", None)):
+        srv = FLServer(cfg, MLPTask(), data, executor=VmappedExecutor(mesh=m), device="cuda")
+        r = srv.run_round(build_policy("fedrank", k=10))
+        check_round(srv, r, cfg.k_select)
+        res[name], srvs[name] = r, srv
+    a, b = res["mesh"], res["no_mesh"]
+    diff = params_diff(srvs["mesh"].global_params, srvs["no_mesh"].global_params)
+    require(a.selected.tolist() == b.selected.tolist()
+            and sorted(a.probe_set) == sorted(b.probe_set) and diff <= 1e-6,
+            (a.selected.tolist(), b.selected.tolist(), diff))
+    emit(phase="mesh_fl", policy="fedrank", n_devices=cfg.n_devices, k=cfg.k_select,
+         cohort=a.selected.tolist(), params_max_abs_diff=diff,
+         host_s_mesh=a.host_time_s, host_s_no_mesh=b.host_time_s)
+
+
+def phase_mesh_dryruns(torch, procs):
+    """(c) and (d): every dry-run process's record; ``ok`` each, its
+    per-device FLOPs, bytes and wire bytes, seconds and roofline row; for
+    path 10's step on the 1x1 mesh, the compute and memory terms beside the
+    ms path 10 measured (or 5 steps measured here when it did not run)."""
+    from repro_torch.launch.roofline import row_from_record
+
+    recs = {}
+    for name, (proc, out) in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        require(proc.returncode == 0 and out.is_file(), f"dry-run {name}: {log[-2000:]}")
+        rec = json.loads(out.read_text())[0]
+        require(rec["status"] == "ok", (name, rec.get("error")))
+        # the counter's per-device FLOPs of a sharded MLP, exact on this torch
+        check = rec["counter_check"]
+        require(check["dot_flops"] == check["expected"], (name, check))
+        row = row_from_record(rec)
+        recs[name] = (rec, row)
+        emit(phase="mesh_dryrun", run=name, mesh=rec["mesh"], chips=rec["chips"],
+             seconds=rec["seconds"], flops_per_device=rec["hlo"]["flops_per_device"],
+             dot_flops_per_device=rec["hlo"]["dot_flops_per_device"],
+             bytes_per_device=rec["hlo"]["bytes_per_device"],
+             collective_wire_bytes=rec["hlo"]["collective_wire_bytes"],
+             collective_wire_bytes_by_axis=rec["hlo"]["collective_wire_bytes_by_axis"],
+             collective_bytes=rec["hlo"]["collective_bytes"], memory=rec["memory"],
+             not_measured=rec["not_measured"], roofline=row.as_dict(), counter_check=check,
+             log_tail=log.strip().splitlines()[-1][:300])
+    rec, row = recs["path10_step"]
+    step_ms = _PATH10.get("blocked_ms") or measure_path10_step(torch)
+    roof_ms = 1e3 * max(row.compute_s, row.memory_s)
+    emit(phase="mesh_roofline_vs_card", model="yi-6b", layers=LM_TRAIN["layers"],
+         batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"], impl="blocked",
+         compute_ms=1e3 * row.compute_s, memory_ms=1e3 * row.memory_s,
+         measured_ms_per_step=step_ms, measured_by=("path10_lm_train" if "blocked_ms" in _PATH10
+                                                    else "path12_mesh"),
+         roofline_over_measured=roof_ms / step_ms,
+         note="the memory term counts every eager op's operands and results (unfused)")
+    return {name: rec["seconds"] for name, (rec, _) in recs.items()}
+
+
+def measure_path10_step(torch, steps=5):
+    """Path 10's Yi-6B step (``impl="blocked"``): the median ms of steps 2..n."""
+    import dataclasses
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import transformer as T
+
+    c = LM_TRAIN
+    cfg = dataclasses.replace(get_model_config(c["arch"]), n_layers=c["layers"])
+    params = T.init_params(0, cfg, "cuda")
+    r = run_train(torch, cfg, params, "blocked", steps, c["lr"], c["batch"], c["seq"])
+    del params
+    torch.cuda.empty_cache()
+    return statistics.median(r["ms"][1:])
+
+
+def phase_mesh(torch, data):
+    """Path 12: the dry-runs start first, in processes of their own, and
+    run while this process drives the 1x1 mesh on the card."""
+    from repro_torch.launch.mesh import destroy_process_group, ensure_process_group, make_host_mesh
+
+    procs = timed("dryrun_start", start_dryruns)
+    ensure_process_group("cuda")                  # one-rank NCCL group
+    try:
+        mesh = make_host_mesh("cuda")
+        counts, runs = timed("models", phase_mesh_models, torch, mesh)
+        timed("train", phase_mesh_train, torch, mesh)
+        timed("fl", phase_mesh_fl, torch, mesh, data)
+    finally:
+        destroy_process_group()
+    dry_s = timed("dryruns", phase_mesh_dryruns, torch, procs)
+    totals = {}
+    for n in counts.values():
+        for k, v in n.items():
+            totals[k] = totals.get(k, 0) + v
+    emit(phase="main_launches", path="mesh", launches=totals, per_model=counts,
+         dryrun_seconds=dry_s)
+    return totals, counts
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row, shape):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
@@ -3881,7 +4191,7 @@ STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attentio
          "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
          "path3_baselines", "path4_trace", "path5_async", "vmapped",
          "path8_hierarchy", "path6_lm", "path7_ssm", "path9_lm_fl", "obs",
-         "path10_lm_train", "path11_zoo")
+         "path10_lm_train", "path11_zoo", "path12_mesh")
 
 
 def run_phases(torch, card, only=()):
@@ -4035,6 +4345,9 @@ def run_phases(torch, card, only=()):
             timed("cpu_vs_card", phase_cpu_agreement_zoo, torch)
             zoo_counts, zoo_runs = timed("serving", phase_zoo_serving, torch)
             timed("train", phase_zoo_train, torch)
+    if want("path12_mesh"):
+        with step("path12_mesh"):
+            mesh_counts, mesh_runs = phase_mesh(torch, data)
     if only:
         return None
 
@@ -4117,6 +4430,13 @@ def run_phases(torch, card, only=()):
              ms_back_to_back=ssm_timings["rwkv6_prefill"]["ms_back_to_back"],
              launch_config=ssm_timings["rwkv6_prefill"]["launch"]),
     ]
+    # the DTensor route on the 1x1 mesh (path 12): the same kernels on the
+    # local shards
+    for e in entries:
+        if e["name"] in mesh_counts:
+            e["launches_dtensor_route"] = mesh_counts[e["name"]]
+            e["launches_dtensor_route_by_model"] = {
+                arch: n[e["name"]] for arch, n in mesh_runs.items() if n[e["name"]]}
     # LM training (path 10) runs none of the kernels: no backward exists
     for e in entries:
         e["launches_lm_train"] = sum(n for k, n in lm_train_counts.items()

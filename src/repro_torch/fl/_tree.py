@@ -8,10 +8,12 @@ recursively.  ``torch.utils._pytree`` keeps insertion order, so it is not
 used here.  Everything that draws or concatenates leaf by leaf (Gaussian
 noise, Krum's flatten, the label axis of the last leaf) follows this order;
 :func:`tree_map` keeps the first tree's own key order in its output.
+:func:`tree_map_with_path` and :func:`tree_leaves_with_path` also walk named
+tuples (a decode state's caches) and hand each leaf its key path.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Mapping, Sequence
+from typing import Any, Callable, Iterator, List, Mapping, Sequence, Tuple
 
 import torch
 
@@ -54,6 +56,60 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
+                       is_leaf: Callable[[Any], bool] = lambda x: False,
+                       path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` over a tree of dicts, named tuples, lists and
+    tuples; ``path`` holds the dict keys, the named tuples' field names and
+    ``"[i]"`` for sequence items, as the reference's key paths print them.
+    ``None`` stays ``None`` (an empty subtree)."""
+    if tree is None:
+        return None
+    if is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_path(fn, v, is_leaf, path + (str(k),))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f), is_leaf, path + (f,))
+                            for f in tree._fields))
+    if type(tree) in (list, tuple):
+        return type(tree)(tree_map_with_path(fn, v, is_leaf, path + (f"[{i}]",))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tree_leaves_with_path(tree: Any, is_leaf: Callable[[Any], bool] = lambda x: False
+                          ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs in the reference's leaf order: dict keys sorted,
+    named-tuple fields and sequence items in order."""
+    out: List[Tuple[Tuple[str, ...], Any]] = []
+
+    def walk(t, path):
+        if t is None:
+            return
+        if is_leaf(t):
+            out.append((path, t))
+        elif isinstance(t, Mapping):
+            for k in sorted(t):
+                walk(t[k], path + (str(k),))
+        elif _is_namedtuple(t):
+            for f in t._fields:
+                walk(getattr(t, f), path + (f,))
+        elif type(t) in (list, tuple):
+            for i, v in enumerate(t):
+                walk(v, path + (f"[{i}]",))
+        else:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
 
 
 def tree_unflatten(like: Tree, leaves: Sequence[Any]) -> Tree:

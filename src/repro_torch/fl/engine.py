@@ -27,8 +27,9 @@ from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.fl._tree import tree_device, tree_index, tree_stack
+from repro_torch.fl._tree import tree_device, tree_index, tree_map, tree_stack
 from repro_torch.fl.client import (
     _bucket_geometry,
     _pad_bucket,
@@ -160,18 +161,20 @@ class VmappedExecutor:
     Each client's params are its slice of the stacked result (a view, on the
     device); the losses come to the host in one copy per bucket.
 
-    The reference's ``mesh`` (sharding the client axis over a TPU mesh) is
-    not here: only ``mesh=None`` is accepted.
+    ``mesh`` (a DeviceMesh with a ``data`` axis, see
+    :mod:`repro_torch.launch.mesh`) shards the client axis over ``data``, as
+    the reference does: each bucket is padded to a multiple of the axis size
+    with duplicates of its last client (their results are dropped), each
+    rank runs its contiguous slice of the padded clients through the same
+    bucket step, and an ``all_gather`` over the axis gives every rank every
+    client's params and losses.  Ranks along other axes repeat the work of
+    their ``data`` coordinate.
     """
 
     name = "vmapped"
 
     def __init__(self, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "VmappedExecutor(mesh=...) is not ported: sharding the client "
-                "axis over a device mesh comes with the TPU-mesh tooling slice "
-                "of the port; use mesh=None")
+        self.mesh = mesh
 
     def run(self, task, global_params, requests, *, lr, batch_size, prox_mu
             ) -> ExecutionResult:
@@ -207,9 +210,20 @@ class VmappedExecutor:
             perms.append(np.stack([rng.permutation(cap)[:take]
                                    for _ in range(epochs)]))
         stacked_init = any(req.init_params is not None for req in reqs)
+        inits = [req.init_params if req.init_params is not None
+                 else global_params for req in reqs] if stacked_init else None
+        lo, hi = 0, len(reqs)
+        if self.mesh is not None:
+            # pad the client axis to a multiple of the data axis (duplicates
+            # of the last client, results dropped); this rank takes its slice
+            n, r = self._data_axis()
+            for lst in (xs, ys, masks, perms) + ((inits,) if stacked_init else ()):
+                lst.extend([lst[-1]] * ((-len(reqs)) % n))
+            per = len(xs) // n
+            lo, hi = r * per, (r + 1) * per
+            xs, ys, masks, perms = xs[lo:hi], ys[lo:hi], masks[lo:hi], perms[lo:hi]
+            inits = inits[lo:hi] if stacked_init else None
         if stacked_init:
-            inits = [req.init_params if req.init_params is not None
-                     else global_params for req in reqs]
             p0 = tree_stack(inits)
         else:
             # shared start (probe stage, plain rounds): the one dict is
@@ -223,12 +237,35 @@ class VmappedExecutor:
             f"vmapped.bucket_step[k={len(reqs)},ep={epochs}]",
             step, p0, torch.stack(xs), torch.stack(ys), torch.stack(masks),
             float(lr), torch.as_tensor(np.stack(perms), device=device))
+        if self.mesh is not None:
+            stacked, ep_losses = self._gather((stacked, ep_losses))
         # one device->host copy of the bucket's losses; each client's params
         # are a view of the stacked result (slicing launches nothing)
         ep_losses = ep_losses.double().cpu().numpy()
         for j, req in enumerate(reqs):
             out.params[req.client_id] = tree_index(stacked, j)
             out.losses[req.client_id] = ep_losses[j]
+
+
+    def _data_axis(self):
+        """(size of the mesh's ``data`` axis, this rank's coordinate on it)."""
+        names = self.mesh.mesh_dim_names
+        if "data" not in names:
+            return 1, 0
+        return self.mesh.size(names.index("data")), self.mesh.get_local_rank("data")
+
+    def _gather(self, tree):
+        """Every rank's slice of the client axis, concatenated in rank order
+        over the ``data`` axis."""
+        n, _ = self._data_axis()
+        group = self.mesh.get_group("data") if "data" in self.mesh.mesh_dim_names else None
+
+        def gather(t):
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts)
+
+        return tree_map(gather, tree)
 
 
 def executor_label(ex) -> str:

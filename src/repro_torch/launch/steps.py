@@ -1,18 +1,22 @@
-"""Step functions: the training step, serving's prefill and decode steps.
+"""Step functions (the training step, serving's prefill and decode steps)
+and shape stand-ins of every step input for every (arch x shape).
 
-The reference's ``repro.launch.steps`` also builds ``ShapeDtypeStruct``
-stand-ins for its XLA dry-run (``params_struct``, ``opt_struct``,
-``batch_specs``, ``decode_state_struct``, ``input_specs``); they come with the
-port's mesh tooling.
+The stand-ins (:func:`params_struct`, :func:`opt_struct`,
+:func:`batch_specs`, :func:`decode_state_struct`, :func:`input_specs`) are
+the reference's ``jax.eval_shape`` results as tensors on the ``meta``
+device: the same shapes and dtypes, no storage on any device.  The dry-run
+(:mod:`repro_torch.launch.dryrun`) places them on a mesh as DTensors over
+fake local shards.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.fl._tree import tree_leaves, tree_unflatten
+from repro_torch.fl._tree import tree_leaves, tree_map_with_path, tree_unflatten
 from repro_torch.models import transformer as T
 from repro_torch.optim import Optimizer, adamw, linear_warmup_cosine
 
@@ -22,6 +26,72 @@ def text_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
     if cfg.frontend is not None and not cfg.enc_dec:
         return max(1, shape.seq_len - cfg.frontend.n_tokens)
     return shape.seq_len
+
+
+def _meta(tree: Any) -> Any:
+    """The same tree with every tensor leaf as a ``meta`` tensor of its
+    shape and dtype."""
+    def to_meta(_, t):
+        if isinstance(t, torch.Tensor):
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return t
+
+    return tree_map_with_path(to_meta, tree)
+
+
+def params_struct(cfg: ModelConfig) -> Any:
+    """:func:`~repro_torch.models.transformer.init_params`'s tree as meta
+    tensors (traced under ``FakeTensorMode``: no weights are drawn)."""
+    with FakeTensorMode():
+        params = T.init_params(0, cfg, "cpu")
+    return _meta(params)
+
+
+def opt_struct(cfg: ModelConfig, optimizer: Optimizer) -> Any:
+    return optimizer.init(params_struct(cfg))
+
+
+def _frontend_struct(cfg: ModelConfig, b: int) -> torch.Tensor:
+    fe = cfg.frontend
+    n = fe.n_tokens if not cfg.enc_dec else cfg.enc_seq
+    return torch.empty((b, n, fe.embed_dim), dtype=T.torch_dtype(cfg.dtype), device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    b = shape.global_batch
+    s = text_len(cfg, shape)
+    batch = {
+        "tokens": torch.empty((b, s), dtype=torch.int32, device="meta"),
+        "labels": torch.empty((b, s), dtype=torch.int32, device="meta"),
+    }
+    if cfg.frontend is not None:
+        batch["frontend_embeds"] = _frontend_struct(cfg, b)
+    return batch
+
+
+def decode_state_struct(cfg: ModelConfig, shape: ShapeConfig) -> T.DecodeState:
+    """The decode state of ``shape.global_batch`` sequences of capacity
+    ``shape.seq_len``; whisper's cross-attention K/V come from its encoder
+    run on meta tensors."""
+    b = shape.global_batch
+    fe = _frontend_struct(cfg, b) if cfg.frontend is not None else None
+    return T.init_decode_state(params_struct(cfg), cfg, b, shape.seq_len,
+                               frontend_embeds=fe)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """All step inputs as meta tensors (no device allocation)."""
+    if shape.mode == "train":
+        return {"batch": batch_specs(cfg, shape)}
+    if shape.mode == "prefill":
+        bs = batch_specs(cfg, shape)
+        bs.pop("labels")
+        return {"batch": bs}
+    # decode
+    return {
+        "token": torch.empty((shape.global_batch,), dtype=torch.int32, device="meta"),
+        "state": decode_state_struct(cfg, shape),
+    }
 
 
 def make_optimizer(total_steps: int = 10_000) -> Optimizer:
@@ -76,11 +146,13 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, impl: str = "flash"
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable[[Any, T.DecodeState, torch.Tensor],
-                                                  Tuple[torch.Tensor, T.DecodeState]]:
-    """One decode step: ONE new token against the full KV cache."""
+def make_serve_step(cfg: ModelConfig, impl: str = "flash"
+                    ) -> Callable[[Any, T.DecodeState, torch.Tensor],
+                                  Tuple[torch.Tensor, T.DecodeState]]:
+    """One decode step: ONE new token against the full KV cache; ``impl``
+    picks the SSM mixers' route (the kernels under ``"flash"``)."""
 
     def serve_step(params, state, token):
-        return T.decode_step(params, cfg, state, token)
+        return T.decode_step(params, cfg, state, token, impl)
 
     return serve_step

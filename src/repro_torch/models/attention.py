@@ -25,14 +25,25 @@ cache that shares them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.flash_xla import flash_attention_xla
 from repro_torch.models.layers import apply_rope, dense_init_on
+from repro_torch.models.sharding import (
+    as_dtensor,
+    local_map_heads,
+    local_offset,
+    replicate,
+    reshape,
+    shard,
+    whole_heads,
+)
 
 NEG_INF = -1e30
 IMPLS = ("naive", "flash", "blocked")
@@ -70,7 +81,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n, dh)
+    # a projection sharded over more ranks than it has heads (hymba's 25, a
+    # KV projection's few) is gathered first: DTensor splits no head
+    return reshape(whole_heads(x, n), b, s, n, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -229,21 +242,28 @@ def attention_prefill(
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     k = _split_heads(src @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(src @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     if cfg.use_rope and kv_from is None:
         pos = positions if positions is not None else torch.arange(s, device=x.device)[None, :]
         pos = torch.broadcast_to(pos, (b, s))
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     if impl == "blocked" and kv_from is None:
-        qg = q.reshape(b, s, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)
-        out = flash_attention_xla(qg, k, v, causal, window)
-        out = out.reshape(b, s, cfg.n_heads, cfg.head_dim)
+        def core(q, k, v):
+            qg = q.reshape(q.shape[:2] + (k.shape[2], q.shape[2] // k.shape[2], q.shape[3]))
+            return flash_attention_xla(qg, k, v, causal, window).reshape(q.shape)
     elif impl == "flash" and kv_from is None:
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        def core(q, k, v):
+            return flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = naive_attention(q, k, v, causal=causal and kv_from is None, window=window)
-    y = out.reshape(b, s, cfg.q_dim) @ p["wo"]
-    return y, (k, v)
+        def core(q, k, v):
+            return naive_attention(q, k, v, causal=causal and kv_from is None, window=window)
+    # on a mesh the core runs on each rank's batch rows and heads
+    out = shard(local_map_heads(core, q, k, v), "batch", "seq", "heads", None)
+    y = reshape(out, b, s, cfg.q_dim) @ p["wo"]
+    return shard(y, "batch", "seq", "embed"), (k, v)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
@@ -271,11 +291,12 @@ def attention_decode(
     b = x.shape[0]
     dev = x.device
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    q = shard(q, "batch", None, "heads", None)
 
     if cross_kv is not None:
         k, v = cross_kv
-        out = naive_attention(q, k, v, causal=False)
-        return out.reshape(b, 1, cfg.q_dim) @ p["wo"], cache
+        out = local_map_heads(functools.partial(naive_attention, causal=False), q, k, v)
+        return shard(reshape(out, b, 1, cfg.q_dim) @ p["wo"], "batch", None, "embed"), cache
 
     pos = cache.length.long()  # (B,) absolute position of each sequence's new token
     if cfg.use_rope:
@@ -286,9 +307,10 @@ def attention_decode(
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     cap = cache.k.shape[1]
     slot = torch.remainder(pos, cap)                             # (B,)
-    bidx = torch.arange(b, device=dev)
-    cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
+    _ring_write(cache.k, slot, k_new[:, 0])
+    _ring_write(cache.v, slot, v_new[:, 0])
+    k = shard(cache.k, "batch", "cache", "kv_heads", None)
+    v = shard(cache.v, "batch", "cache", "kv_heads", None)
 
     # absolute position of each cache slot (ring semantics), per sequence
     idx = torch.arange(cap, device=dev)[None, :]                 # (1, cap)
@@ -303,6 +325,29 @@ def attention_decode(
     if window is not None:
         kv_valid &= abs_pos > pos[:, None] - window
 
-    out = naive_attention(q, cache.k, cache.v, causal=False, kv_valid=kv_valid)
-    y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
-    return y, KVCache(cache.k, cache.v, cache.length + 1)
+    # a sequence-sharded cache: the whole (small) query meets each shard of
+    # it, and the softmax gathers the scores
+    out = naive_attention(replicate(q, dims=(2,)), k, v, causal=False, kv_valid=kv_valid)
+    y = reshape(out, b, 1, cfg.q_dim) @ p["wo"]
+    return shard(y, "batch", None, "embed"), KVCache(cache.k, cache.v, cache.length + 1)
+
+
+def _ring_write(buf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = new[b]`` for every sequence b, in place.  On a
+    DTensor cache each rank writes the rows and slots its shard holds."""
+    if not isinstance(buf, DTensor):
+        buf[torch.arange(buf.shape[0], device=buf.device), slot] = new.to(buf.dtype)
+        return
+    mesh = buf.device_mesh
+    want = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in buf.placements]
+    new_l = new.redistribute(mesh, want).to_local().to(buf.dtype)
+    slot_l = as_dtensor(slot, mesh).redistribute(
+        mesh, [Shard(0) if p == Shard(0) else Replicate() for p in buf.placements]).to_local()
+    local = buf.to_local()
+    c0 = local_offset(buf, 1)
+    ls = slot_l.long() - c0
+    hit = (ls >= 0) & (ls < local.shape[1])
+    lsc = ls.clamp(0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    local[rows, lsc] = torch.where(hit[:, None, None], new_l, local[rows, lsc])

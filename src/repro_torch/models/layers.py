@@ -19,6 +19,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 
 Params = Dict[str, torch.Tensor]
 
@@ -42,6 +44,8 @@ def _fill(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype,
     """A ``lead + shape`` tensor of ``dtype``, each ``shape`` slice drawn in
     fp32 by ``draw`` on ``gen``'s device (one slice of fp32 scratch)."""
     out = torch.empty(lead + shape, dtype=dtype, device=gen.device)
+    if is_fake(out):                  # a shape stand-in (launch/steps.py): no draws
+        return out
     flat = out.view(-1, *shape)
     tmp = torch.empty(shape, dtype=torch.float32, device=gen.device)
     for i in range(flat.shape[0]):
@@ -203,15 +207,16 @@ def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
     positions: (d,) at a scalar, (B, d) at a (B,) batch of positions (the
     reference's ``jax.vmap(sinusoidal_at, (0, None))``)."""
     ang = pos.float()[..., None] * _sin_div(d, pos.device)
-    out = torch.zeros(pos.shape + (d,), dtype=torch.float32, device=pos.device)
-    out[..., 0::2] = torch.sin(ang)
-    out[..., 1::2] = torch.cos(ang)
-    return out
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(pos.shape + (d,))
 
 
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
+
+
+def _vocab_ids(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[-1], device=x.device)
 
 
 class _Xent(torch.autograd.Function):
@@ -233,7 +238,13 @@ class _Xent(torch.autograd.Function):
     def forward(logits, labels, m):
         lf = logits.float()
         logz = torch.logsumexp(lf, dim=-1)
-        gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+        if isinstance(lf, DTensor):
+            # the reference's where/iota lookup: it partitions over a sharded
+            # vocab (a gather there leaves a masked partial DTensor cannot
+            # reshape); one nonzero term a row, so the same value
+            gold = torch.where(_vocab_ids(lf) == labels.long().unsqueeze(-1), lf, 0.0).sum(-1)
+        else:
+            gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
         denom = torch.clamp(m.sum(), min=1.0)
         return ((logz - gold) * m).sum() / denom, logz, denom
 
@@ -250,7 +261,10 @@ class _Xent(torch.autograd.Function):
         s = (g / denom * m).unsqueeze(-1)
         dl = torch.exp(logits.float() - logz.unsqueeze(-1))           # softmax
         dl.mul_(s)
-        dl.scatter_add_(-1, labels.long().unsqueeze(-1), -s)          # - onehot * s
+        if isinstance(dl, DTensor):                                   # x - s == x + (-s)
+            dl = dl - torch.where(_vocab_ids(dl) == labels.long().unsqueeze(-1), s, 0.0)
+        else:
+            dl.scatter_add_(-1, labels.long().unsqueeze(-1), -s)      # - onehot * s
         return dl.to(logits.dtype), None, None
 
 

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import activation_fn, dense_init_on, is_gated
+from repro_torch.models.sharding import local_map_channels, reshape, shard
 
 Params = Dict[str, torch.Tensor]
 
@@ -125,14 +126,24 @@ def _sort_dispatch_group(xg: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor
 
 def _expert_ffn(p: Params, xin: torch.Tensor, cfg: ModelConfig, lead: str) -> torch.Tensor:
     """The experts' FFN over ``xin`` (lead..., E, C, d); ``lead`` names the
-    leading axes for the einsums ("g" or "")."""
+    leading axes for the einsums ("g" or "").  On a mesh each rank runs its
+    own groups through its own experts (the banks' other shards gathered)."""
     act = activation_fn(cfg.activation)
-    up = torch.einsum(f"{lead}ecd,edf->{lead}ecf", xin, p["up"])
-    if is_gated(cfg.activation):
-        up = act(torch.einsum(f"{lead}ecd,edf->{lead}ecf", xin, p["gate"])) * up
-    else:
-        up = act(up)
-    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", up, p["down"])
+    gated = is_gated(cfg.activation)
+
+    def ffn(xin, w_up, w_down, w_gate):
+        up = torch.einsum(f"{lead}ecd,edf->{lead}ecf", xin, w_up)
+        if gated:
+            up = act(torch.einsum(f"{lead}ecd,edf->{lead}ecf", xin, w_gate)) * up
+        else:
+            up = act(up)
+        return (torch.einsum(f"{lead}ecf,efd->{lead}ecd", up, w_down),)
+
+    e_dim = len(lead)
+    lead_dims = (0 if lead else None, e_dim)
+    out, = local_map_channels(ffn, (xin, p["up"], p["down"], p.get("gate")),
+                              [lead_dims] + [(None, 0)] * 3, [lead_dims])
+    return out
 
 
 def _apply_moe_sort(p: Params, x: torch.Tensor, cfg: ModelConfig, n_groups: int
@@ -147,23 +158,40 @@ def _apply_moe_sort(p: Params, x: torch.Tensor, cfg: ModelConfig, n_groups: int
     e, k = moe.n_experts, moe.top_k
     cap = _capacity(tg, e, k, moe.capacity_factor)
 
-    xt = x.reshape(t, d)
+    xt = reshape(x, t, d)
     gate_vals, idx, aux = _route(p, xt, moe)
-    xin, _, slot_gate, dropped, token_slot = _sort_dispatch_group(
-        xt.reshape(g, tg, d), gate_vals.reshape(g, tg, k), idx.reshape(g, tg, k), e, cap, k)
+    # on a mesh each rank dispatches and combines its own groups
+    xin, _, slot_gate, dropped, token_slot = local_map_channels(
+        lambda xg, gg, ig: _sort_dispatch_group(xg, gg, ig, e, cap, k),
+        (reshape(xt, g, tg, d), reshape(gate_vals, g, tg, k), reshape(idx, g, tg, k)),
+        [(0, None)] * 3, [(0, None)] * 5)
     aux["dropped_fraction"] = dropped.mean()
 
-    out = _expert_ffn(p, xin.reshape(g, e, cap, d), cfg, "g")          # (G, E, C, d)
+    # (G, E, C, d): groups on data, experts on model -> the EP all-to-all edge
+    xin = shard(reshape(xin, g, e, cap, d), "batch", "expert", None, "embed")
+    out = _expert_ffn(p, xin, cfg, "g")                                 # (G, E, C, d)
+    out = shard(out, "batch", "expert", None, "embed")
 
-    # combine: each token's k slots gathered (the dummy slot E*C reads a zero
-    # row) and weighted by their gates, summed over the k choices in fp32
+    # the combine's rows come back as (B, S, d) from each rank's groups (its
+    # batch rows: groups are contiguous runs of tokens), so no DTensor view
+    # reshapes them
+    y, = local_map_channels(lambda o, sg, ts: (_combine(o, sg, ts, k).reshape(-1, s, d),),
+                            (out, slot_gate, token_slot), [(0, None)] * 3, [(0, None)])
+    return y.to(x.dtype), aux
+
+
+def _combine(out: torch.Tensor, slot_gate: torch.Tensor, token_slot: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """Each token's k slots of ``out`` (G, E, C, d) gathered (the dummy slot
+    E*C reads a zero row) and weighted by their gates, summed over the k
+    choices in fp32: (G, Tg, d)."""
+    g, e, cap, d = out.shape
     flat = torch.cat([out.reshape(g, e * cap, d).float(),
-                      torch.zeros((g, 1, d), dtype=torch.float32, device=x.device)], dim=1)
+                      torch.zeros((g, 1, d), dtype=torch.float32, device=out.device)], dim=1)
     picked = torch.gather(flat, 1, token_slot[..., None].expand(-1, -1, d))  # (G, Tg*k, d)
     w = torch.cat([slot_gate, torch.zeros_like(slot_gate[:, :1])], dim=1)
     w = torch.gather(w, 1, token_slot)                                 # gate * valid
-    y = (picked * w[..., None]).reshape(g, tg, k, d).sum(dim=2)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    return (picked * w[..., None]).reshape(g, -1, k, d).sum(dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +221,8 @@ def _apply_moe_dense(p: Params, x: torch.Tensor, cfg: ModelConfig
     aux["dropped_fraction"] = 1.0 - torch.sum(keep) / (t * k)
 
     xin = torch.einsum("tec,td->ecd", dispatch, xt.float()).to(x.dtype)
-    out = _expert_ffn(p, xin, cfg, "")
+    xin = shard(xin, "expert", None, "embed")
+    out = shard(_expert_ffn(p, xin, cfg, ""), "expert", None, "embed")
     y = torch.einsum("tec,ecd->td", combine, out.float()).to(x.dtype)
     return y.reshape(b, s, d), aux
 

@@ -32,6 +32,7 @@ reference's distributions; ``lead`` stacks layers.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -43,6 +44,7 @@ from repro_torch.kernels.mamba.ref import selective_scan_ref
 from repro_torch.kernels.rwkv6.ops import wkv6_heads
 from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref
 from repro_torch.models.layers import dense_init_on, normal_on
+from repro_torch.models.sharding import local_map_channels, reshape, shard
 
 IMPLS = ("xla", "cuda")
 
@@ -118,9 +120,9 @@ def _rwkv_projections(p: Dict, x: torch.Tensor, x_prev: torch.Tensor):
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, h: int, n: int) -> torch.Tensor:
     """Per-head RMS norm of the wkv output. x: (..., d)."""
     shp = x.shape
-    xh = x.reshape(shp[:-1] + (h, n)).float()
+    xh = reshape(x, *shp[:-1], h, n).float()
     xh = xh * torch.rsqrt(torch.mean(torch.square(xh), -1, keepdim=True) + 1e-6)
-    return (xh.reshape(shp) * scale).to(x.dtype)
+    return (reshape(xh, *shp) * scale).to(x.dtype)
 
 
 def _shifted(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
@@ -141,18 +143,31 @@ def _rwkv_time_mix_heads(p: Dict, x: torch.Tensor, state: RWKVState,
     in the (B, T, H, n) layout, u (H, n) and the state)."""
     b, t, d = x.shape
     h, n = rwkv_dims(cfg)
-    r, k, v, g, logw = _rwkv_projections(p, x, _shifted(x, state.shift_tm))
-    y, s_fin = wkv(*(a.reshape(b, t, h, n).float() for a in (r, k, v, logw)),
-                   p["u"].reshape(h, n), state.wkv)
-    out = _rwkv_out(p, x, y.reshape(b, t, d), g, cfg)
-    return out, RWKVState(s_fin, x[:, -1], state.shift_cm)
+    r, k, v, g, logw = _embed_layout(*_rwkv_projections(p, x, _shifted(x, state.shift_tm)))
+    heads = [reshape(a, b, t, h, n).float() for a in (r, k, v, logw)]
+    # on a mesh the WKV core runs on each rank's batch rows and heads
+    y, s_fin = local_map_channels(wkv, heads + [p["u"].reshape(h, n), state.wkv],
+                                  [(0, 2)] * 4 + [(None, 0), (0, 1)], [(0, 2), (0, 1)])
+    out = _rwkv_out(p, x, reshape(y, b, t, d), g, cfg)
+    return shard(out, "batch", "seq", "embed"), RWKVState(s_fin, x[:, -1], state.shift_cm)
+
+
+def _embed_layout(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The projections on the logical ``embed`` layout before their split
+    into heads (the reference constrains ``r``; a DTensor cannot split a
+    dimension sharded over more ranks than it has heads, so all five)."""
+    return tuple(shard(a, "batch", "seq", "embed") for a in xs)
 
 
 def rwkv_time_mix_recurrent(p: Dict, x: torch.Tensor, state: RWKVState,
-                            cfg: ModelConfig) -> Tuple[torch.Tensor, RWKVState]:
+                            cfg: ModelConfig, impl: str = "cuda"
+                            ) -> Tuple[torch.Tensor, RWKVState]:
     """Decode path: the per-token recurrence through the rwkv6 op (the
-    kernel on the card, its plain version on the CPU). x: (B,T,d)."""
-    return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads)
+    kernel on the card, its plain version on the CPU), or under
+    ``impl="xla"`` its plain version on any device. x: (B,T,d)."""
+    _check_impl(impl)
+    wkv = wkv6_heads if impl == "cuda" else wkv6_heads_ref
+    return _rwkv_time_mix_heads(p, x, state, cfg, wkv)
 
 
 def rwkv_time_mix_chunked(p: Dict, x: torch.Tensor, state: RWKVState,
@@ -170,14 +185,28 @@ def rwkv_time_mix_chunked(p: Dict, x: torch.Tensor, state: RWKVState,
         return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads)
     if t % chunk:
         return _rwkv_time_mix_heads(p, x, state, cfg, wkv6_heads_ref)
-    r, k, v, g, logw = _rwkv_projections(p, x, _shifted(x, state.shift_tm))
+    r, k, v, g, logw = _embed_layout(*_rwkv_projections(p, x, _shifted(x, state.shift_tm)))
+    heads = [reshape(a, b, t, h, n) for a in (r, k, v, logw)]
+    # on a mesh the chunked core runs on each rank's batch rows and heads
+    y, S = local_map_channels(functools.partial(_wkv_chunked, chunk=chunk),
+                              heads + [p["u"].reshape(h, n), state.wkv],
+                              [(0, 2)] * 4 + [(None, 0), (0, 1)], [(0, 2), (0, 1)])
+    out = _rwkv_out(p, x, reshape(y, b, t, d), g, cfg)
+    return shard(out, "batch", "seq", "embed"), RWKVState(S, x[:, -1], state.shift_cm)
+
+
+def _wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+                 u: torch.Tensor, S: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunkwise WKV: r/k/v/logw (B, T, H, n), u (H, n),
+    the state S (B, H, n, n) -> (y (B, T, H, n), S)."""
+    b, t, h, n = r.shape
     nc = t // chunk
     # (B, nc, L, H, n)
     rh = r.reshape(b, nc, chunk, h, n).float()
     kh = k.reshape(b, nc, chunk, h, n).float()
     vh = v.reshape(b, nc, chunk, h, n).float()
     lw = logw.reshape(b, nc, chunk, h, n)
-    u = p["u"].reshape(h, n)
 
     # cumulative log-decay inside each chunk: cum[t] = sum_{u<=t} logw_u
     cum = torch.cumsum(lw, dim=2)                      # (B,nc,L,H,n)
@@ -188,7 +217,7 @@ def rwkv_time_mix_chunked(p: Dict, x: torch.Tensor, state: RWKVState,
     r_f = rh * torch.exp(cum_prev)
     k_f = kh * torch.exp(-cum)
     scores = torch.einsum("bclhn,bcmhn->bchlm", r_f, k_f)
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device),
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device),
                       diagonal=-1)
     scores = scores * mask
     # diagonal bonus term: u * r_t k_t
@@ -198,15 +227,13 @@ def rwkv_time_mix_chunked(p: Dict, x: torch.Tensor, state: RWKVState,
 
     # chunk-boundary contributions: a loop over chunks carrying S
     k_state = kh * torch.exp(total[:, :, None] - cum)  # decayed to chunk end
-    S = state.wkv
     y_cross = []
     for c in range(nc):
         y_cross.append(torch.einsum("blhi,bhij->blhj", r_f[:, c], S))
         S = torch.exp(total[:, c])[..., None] * S + torch.einsum(
             "blhi,blhj->bhij", k_state[:, c], vh[:, c])
     y = y_intra + torch.stack(y_cross, 1)
-    out = _rwkv_out(p, x, y.reshape(b, t, d), g, cfg)
-    return out, RWKVState(S, x[:, -1], state.shift_cm)
+    return y.reshape(b, t, h, n), S
 
 
 def init_rwkv_channel_mix(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -227,7 +254,8 @@ def rwkv_channel_mix(p: Dict, x: torch.Tensor, x_prev_last: torch.Tensor
     xk = x + (x_prev - x) * p["mu"][0]
     xr = x + (x_prev - x) * p["mu"][1]
     k = torch.square(F.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    return shard(out, "batch", "seq", "embed"), x[:, -1]
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device: torch.device,
@@ -315,10 +343,13 @@ def mamba_scan(p: Dict, x: torch.Tensor, st: MambaState, cfg: ModelConfig,
     xi, z, dt, B, C, new_buf = _mamba_preproc(p, x, st.conv, cfg)
     A = -torch.exp(p["log_a"])                           # (inner, state)
     scan = selective_scan if impl == "cuda" else selective_scan_ref
-    y, h_fin = scan(xi.float(), dt, B, C, A, st.h)
+    # on a mesh the scan runs on each rank's batch rows and channels
+    y, h_fin = local_map_channels(scan, (xi.float(), dt, B, C, A, st.h),
+                                  [(0, 2), (0, 2), (0, None), (0, None), (None, 0), (0, 1)],
+                                  [(0, 2), (0, 1)])
     y = y + p["d_skip"] * xi.float()
     out = (y.to(x.dtype) * z) @ p["out"]
-    return out, MambaState(h_fin, new_buf)
+    return shard(out, "batch", "seq", "embed"), MambaState(h_fin, new_buf)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device: torch.device,

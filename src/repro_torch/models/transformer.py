@@ -36,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
@@ -43,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.sharding import distribute_like, embed_lookup, gather_fsdp, shard
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -80,8 +82,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views of the stacked leaves."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+    """Layer ``i``'s parameters: views of the stacked leaves (on a mesh,
+    with their FSDP shards gathered)."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else gather_fsdp(v[i]))
             for k, v in layers.items()}
 
 
@@ -183,6 +186,9 @@ def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params,
     ``causal=False`` is the encoder's bidirectional attention."""
     b = x.shape[0]
     aux = _zero_aux(x)
+    # residual-stream annotation: "act_seq" maps to the model axis under
+    # Megatron-style activation sequence sharding (launch-layer opt-in)
+    x = shard(x, "batch", "act_seq", "embed")
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if cfg.attention == "none":
         st0 = ssm_lib.init_rwkv_state(cfg, b, x.device)
@@ -268,6 +274,7 @@ def _encode(params: Params, cfg: ModelConfig, frontend_embeds: Optional[torch.Te
     _need_frontend(cfg, frontend_embeds)
     eo = _frontend(params, frontend_embeds)
     eo = eo + sinusoidal_positions(eo.shape[1], cfg.d_model, eo.device)[None].to(eo.dtype)
+    eo = shard(eo, "batch", "seq", "embed")
     enc = params["encoder"]
     enc_out, aux = _run_stack(cfg, impl, False, eo, enc["layers"], cfg.n_enc_layers)
     return apply_norm(cfg.norm, enc["final_norm"], enc_out), aux
@@ -282,7 +289,7 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings (B, S, d); for the VLM, the frontend's embeddings
     (through ``frontend_proj`` where present) come first: (B, n + S, d)."""
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens.long())
     if cfg.frontend is not None and not cfg.enc_dec:
         _need_frontend(cfg, frontend_embeds)
         x = torch.cat([_frontend(params, frontend_embeds).to(x.dtype), x], dim=1)
@@ -294,7 +301,7 @@ def _positions(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     (whisper's decoder); RWKV6 is position-free."""
     if not cfg.use_rope and cfg.attention != "none":
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -303,7 +310,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     logits = x @ head
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -378,6 +385,8 @@ def _layer_caches(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def _store(dst: Tuple[torch.Tensor, ...], src: Tuple[torch.Tensor, ...]) -> None:
     for d, s in zip(dst, src):
+        if isinstance(d, DTensor):        # in place: the source takes d's layout
+            s = distribute_like(s, d)
         d.copy_(s)
 
 
@@ -387,9 +396,9 @@ def _cross_kv(params: Params, cfg: ModelConfig, enc_out: torch.Tensor
     two (L, B, enc_seq, KV, Dh) tensors."""
     b = enc_out.shape[0]
     ca = params["layers"]["cross_attn"]
-    k = torch.stack([(enc_out @ ca["wk"][i]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.stack([(enc_out @ gather_fsdp(ca["wk"][i])).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
                      for i in range(cfg.n_layers)])
-    v = torch.stack([(enc_out @ ca["wv"][i]).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = torch.stack([(enc_out @ gather_fsdp(ca["wv"][i])).reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
                      for i in range(cfg.n_layers)])
     return k, v
 
@@ -413,18 +422,21 @@ def init_decode_state(params: Params, cfg: ModelConfig, batch: int,
 
 def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
                   cache: Dict[str, Any],
-                  cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  impl: str = "flash") -> Tuple[torch.Tensor, Dict]:
     """One-token layer step. x: (B,1,d).  Writes the K/V ring in place and
     returns the layer's new caches.  ``cross_kv``: this layer's (k, v) of
-    the encoder output (whisper).  The SSM mixers go through the kernels'
-    ops (the reference's decode has no ``impl``: on the card the ops launch
-    the kernels, on the CPU they take the plain versions); an MoE layer
-    routes the B tokens and drops its aux, as the reference does."""
+    the encoder output (whisper).  Under ``impl="flash"`` (the default) the
+    SSM mixers go through the kernels' ops (on the card the ops launch the
+    kernels, on the CPU they take the plain versions); any other ``impl``
+    takes their plain versions on any device, as the reference's decode
+    does (the dry-run's meta tensors reach no kernel).  An MoE layer routes
+    the B tokens and drops its aux, as the reference does."""
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if cfg.attention == "none":
         st = cache["rwkv"]
-        y, st2 = ssm_lib.rwkv_time_mix_recurrent(lp["time_mix"], h, st, cfg)
+        y, st2 = ssm_lib.rwkv_time_mix_recurrent(lp["time_mix"], h, st, cfg,
+                                                 impl=_mixer_impl(impl))
         x = x + y
         h = apply_norm(cfg.norm, lp["norm2"], x)
         y, last_cm = ssm_lib.rwkv_channel_mix(lp["channel_mix"], h, st.shift_cm)
@@ -433,7 +445,7 @@ def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     new = {"kv": kv2}
     if cfg.attention == "hybrid":
         m_out, new["mamba"] = ssm_lib.mamba_scan(lp["mamba"], h, cache["mamba"], cfg,
-                                                 impl="cuda")
+                                                 impl=_mixer_impl(impl))
         a_out = 0.5 * (a_out + m_out)
     x = x + a_out
     if cross_kv is not None:
@@ -446,21 +458,30 @@ def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     return x + y, new
 
 
+def _ring_of(k: torch.Tensor, cap: int, dtype: torch.dtype) -> torch.Tensor:
+    """Prefilled K or V (B,S,KV,Dh) as a ring buffer (B,C,KV,Dh) of ``dtype``:
+    the one definition of the cache's layout.  Position p sits in slot
+    ``p % C``; past the capacity C only the last C positions are kept, and
+    below it the slots past S are zero."""
+    s = k.shape[1]
+    k = k.to(dtype)
+    if s <= cap:
+        pad = torch.zeros((k.shape[0], cap - s) + tuple(k.shape[2:]), dtype=dtype,
+                          device=k.device)
+        return torch.cat([k, pad], dim=1)
+    kk = k[:, -cap:]
+    r = (s - cap) % cap                         # position s - cap + j sits in slot (r + j) % cap
+    return torch.cat([kk[:, cap - r:], kk[:, :cap - r]], dim=1)
+
+
 def _kv_into_ring(k: torch.Tensor, v: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor) -> attn.KVCache:
-    """Pack prefilled K/V (B,S,KV,Dh) into the zeroed ring buffers ``ck``/
-    ``cv`` (B,C,KV,Dh) (one layer's slice of the stacked cache), in their
-    dtype; past the capacity C only the last C positions are kept, each in
-    its ring slot."""
+    """Pack prefilled K/V (B,S,KV,Dh) into the ring buffers ``ck``/``cv``
+    (B,C,KV,Dh) (one layer's slice of the stacked cache) in place, in their
+    dtype and :func:`_ring_of`'s layout."""
     b, s = k.shape[:2]
-    cap = ck.shape[1]
-    if s <= cap:
-        ck[:, :s] = k.to(ck.dtype)
-        cv[:, :s] = v.to(cv.dtype)
-    else:
-        slots = torch.arange(s - cap, s, device=k.device) % cap   # unique slots
-        ck[:, slots] = k[:, -cap:].to(ck.dtype)
-        cv[:, slots] = v[:, -cap:].to(cv.dtype)
+    ck.copy_(_ring_of(k, ck.shape[1], ck.dtype))
+    cv.copy_(_ring_of(v, cv.shape[1], cv.dtype))
     return attn.KVCache(ck, cv, torch.full((b,), s, dtype=torch.int32, device=k.device))
 
 
@@ -493,7 +514,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _positions(cfg, x)
     b, s_total = x.shape[0], x.shape[1]
     max_len = max_len or s_total
-    layers = _zero_caches(cfg, b, _cache_cap(cfg, max(max_len, s_total)), x.device)
+    cap = _cache_cap(cfg, max(max_len, s_total))
+    if isinstance(x, DTensor):
+        return _prefill_sharded(params, cfg, x, enc_out, cross_kv, cap, impl, last_only)
+    layers = _zero_caches(cfg, b, cap, x.device)
     for i in range(cfg.n_layers):
         x, got, _ = _seq_layer(cfg, impl, x, layer_params(params["layers"], i),
                                enc_out=enc_out)
@@ -512,8 +536,42 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x), state
 
 
+def _prefill_sharded(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                     enc_out: Optional[torch.Tensor], cross_kv, cap: int, impl: str,
+                     last_only: bool) -> Tuple[torch.Tensor, DecodeState]:
+    """:func:`prefill` on DTensors: the layers' cache material is stacked
+    into new caches (in the dtypes of :func:`_zero_caches`) where the plain
+    path writes preallocated ones in place; the caller lays the state out
+    (``launch.sharding.decode_state_specs``), as the reference's
+    ``out_shardings`` do."""
+    b, s_total = x.shape[0], x.shape[1]
+    like = _zero_caches(cfg, b, cap, torch.device("meta"))
+    got = []
+    for i in range(cfg.n_layers):
+        x, g, _ = _seq_layer(cfg, impl, x, layer_params(params["layers"], i),
+                             enc_out=enc_out)
+        got.append(g)
+    layers: Dict[str, Any] = {}
+    for name, ref in like.items():
+        if name == "kv":
+            k = torch.stack([_ring_of(g["kv"][0], cap, ref.k.dtype) for g in got])
+            v = torch.stack([_ring_of(g["kv"][1], cap, ref.v.dtype) for g in got])
+            length = torch.full((cfg.n_layers, b), s_total, dtype=torch.int32,
+                                device=x.device)
+            layers[name] = attn.KVCache(k, v, length)
+        else:
+            layers[name] = type(ref)(*(torch.stack([g[name][j] for g in got]).to(r.dtype)
+                                       for j, r in enumerate(ref)))
+    if last_only:
+        x = x[:, -1:]
+    state = DecodeState(layers, torch.full((b,), s_total, dtype=torch.int32, device=x.device),
+                        cross_kv)
+    return _logits(params, cfg, x), state
+
+
 def _decode_step_into(params: Params, cfg: ModelConfig, state: DecodeState,
-                      token: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
+                      token: torch.Tensor, impl: str = "flash"
+                      ) -> Tuple[torch.Tensor, DecodeState]:
     """:func:`decode_step` writing into ``state``'s caches in place: the new
     state shares them, so ``state`` is not reusable as the old state.  For
     callers that own their state (``launch/serve.py``,
@@ -521,25 +579,28 @@ def _decode_step_into(params: Params, cfg: ModelConfig, state: DecodeState,
     x = params["embed"][token.long()][:, None, :]                    # (B,1,d)
     if not cfg.use_rope and cfg.attention != "none":
         x = x + sinusoidal_at(state.step, cfg.d_model)[:, None].to(x.dtype)
+    x = shard(x, "batch", None, "embed")
     for i in range(cfg.n_layers):
         cache = _layer_caches(state.layers, i)
         ckv = None if state.cross_kv is None else (state.cross_kv[0][i], state.cross_kv[1][i])
-        x, new = _decode_layer(cfg, x, layer_params(params["layers"], i), cache, ckv)
+        x, new = _decode_layer(cfg, x, layer_params(params["layers"], i), cache, ckv, impl)
         for name, c in new.items():
             if name == "kv":                  # K/V went into the ring in place
-                cache["kv"].length.copy_(c.length)
+                _store((cache["kv"].length,), (c.length,))
             else:
                 _store(cache[name], c)
-    logits = _logits(params, cfg, x)[:, 0]
+    logits = shard(_logits(params, cfg, x)[:, 0], "batch", "vocab")
     return logits, DecodeState(state.layers, state.step + 1, state.cross_kv)
 
 
 def decode_step(params: Params, cfg: ModelConfig, state: DecodeState,
-                token: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
+                token: torch.Tensor, impl: str = "flash"
+                ) -> Tuple[torch.Tensor, DecodeState]:
     """token: (B,) int -> (logits (B, V), new state).  ``state`` is left as
     it was, as in the reference: the caches are cloned once, then
     :func:`_decode_step_into` writes the clones.  Whisper's cross-attention
-    K/V are only read, so both states share them."""
+    K/V are only read, so both states share them.  ``impl``: the SSM
+    mixers' route (:func:`_decode_layer`)."""
     layers = {name: type(c)(*(t.clone() for t in c)) for name, c in state.layers.items()}
     return _decode_step_into(params, cfg, DecodeState(layers, state.step, state.cross_kv),
-                             token)
+                             token, impl)

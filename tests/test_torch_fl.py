@@ -179,8 +179,12 @@ def test_scenario_streams_exactly_equal(scenario):
 
 def test_unported_scenarios_and_executors_raise():
     """Every scenario and executor of the reference is registered; unknown
-    names raise, listing the registered ones."""
-    assert tscen.available_scenarios() == jscen.available_scenarios()
+    names raise, listing the registered ones.  Scenarios that other test
+    files register in the reference's registry (``test-*``, e.g.
+    ``tests/test_traces.py``'s) are not the reference's own: whether one of
+    them is there depends on which files ran before in this process."""
+    ref_own = [n for n in jscen.available_scenarios() if not n.startswith("test-")]
+    assert tscen.available_scenarios() == ref_own
     for name in ("hierarchical", "regional-outage", "byzantine-signflip"):
         assert tscen.build_scenario(name, 10, device="cpu").n == 10
     with pytest.raises(KeyError, match="registered"):

@@ -85,7 +85,13 @@ def test_port_files_exist():
                  "src/repro_torch/optim/schedules.py",
                  "src/repro_torch/checkpoint/msgpack_ckpt.py",
                  "src/repro_torch/models/flash_xla.py",
-                 "src/repro_torch/launch/train.py"):
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/sharding.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/roofline.py",
+                 "src/repro_torch/launch/hlo_cost.py",
+                 "src/repro_torch/models/sharding.py"):
         assert want in names
     for cu in ("pairwise_rank", "select_topk", "fleet_state", "flash_attention",
                "mamba", "rwkv6"):
@@ -102,11 +108,8 @@ def test_no_jax_and_no_reference_imports(path):
 
 
 # Public names of a reference module that its port may lack, each named in
-# ROADMAP.md: queued for a later slice (section 1) ...
-QUEUED = {
-    "launch/steps.py": {"params_struct", "opt_struct", "batch_specs",
-                        "decode_state_struct", "input_specs"},  # item 5
-}
+# ROADMAP.md: queued for a later slice (section 1; none is left) ...
+QUEUED = {}
 # ... or replaced by the port's design (section 2): name -> the port's name
 # in the same module that takes its place
 REPLACED = {
@@ -122,6 +125,12 @@ REPLACED = {
     "kernels/fleet_state/ops.py": {"resolve_fleet_state_impl": "segment_index"},
     "kernels/flash_attention/ops.py": {"attention": "flash_attention"},
     "core/features.py": {"featurize_jnp": "featurize"},
+    # the reference parses compiled HLO text; the port counts the ops a
+    # step dispatches on its local shards
+    "launch/hlo_cost.py": {"parse_hlo": "CostCounter", "analyze": "analyze_step",
+                           "analyze_hlo_text": "analyze_step", "Op": "CostCounter",
+                           "Computation": "CostCounter", "shape_bytes": "tensor_bytes",
+                           "shape_elems": "tensor_elems", "shape_dims": "tensor_elems"},
 }
 
 
@@ -157,6 +166,14 @@ def test_ported_modules_keep_the_reference_public_names(rel):
     assert not (allowed & (defs | (exported or set()))), sorted(allowed & defs)
     for name, ours in REPLACED.get(rel, {}).items():
         assert ours in defs | (exported or set()), (name, ours)
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port is whole: each ``.py`` of ``src/repro`` has its namesake under
+    ``src/repro_torch``."""
+    missing = sorted(p.relative_to(REF_PKG).as_posix() for p in REF_PKG.rglob("*.py")
+                     if not (PORT_PKG / p.relative_to(REF_PKG)).is_file())
+    assert not missing, missing
 
 
 def test_every_allowed_missing_name_is_in_the_roadmap():

@@ -141,8 +141,12 @@ def test_parallel_local_train_equals_reference(mlp_task, fl_data, stacked):
 
 
 def test_vmapped_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="TPU-mesh"):
-        tfl.VmappedExecutor(mesh=object())
+    """The mesh is no longer refused: the executor keeps it and shards the
+    client axis over its ``data`` axis (``tests/test_torch_mesh.py`` runs it
+    on a host mesh and on two gloo ranks)."""
+    mesh = object()
+    assert tfl.VmappedExecutor(mesh=mesh).mesh is mesh
+    assert tfl.VmappedExecutor().mesh is None
     assert "vmapped" in tfl.available_executors()
 
 
