@@ -87,7 +87,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    whisper's encoder (``is_causal=False``) and OLMoE's prefill;
    ``mamba`` and ``rwkv6`` at path 7's
    shapes and at T=8192 (B=1), beside the plain version and the bound (no
-   one PyTorch call computes either);
+   one PyTorch call computes either); then each kernel's dispatcher op
+   (``repro_torch::flash_attention`` at Yi-6B's prefill shape,
+   ``repro_torch::selective_scan`` and ``repro_torch::wkv6`` at a Hymba and
+   an RWKV6 decode step, B=4, T=1) against a direct call of its ``*_cuda``
+   wrapper: the same bits, exactly one launch a call each, and the host
+   microseconds a call of each (from the call to its return, the card idle
+   before each call; medians of 400, in turns).  The bounds come from
+   ``src/repro_torch/kernels/work.py``, the formulas the dry-run's counter
+   books;
 4. the CPU and the card agree: one round of every policy at 50 devices picks
    the same cohorts, 5 imitation-pretraining steps from the same Q-net give
    the same Q-net, an asynchronous trace run schedules the same jobs, one
@@ -144,7 +152,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     ``ContinuousBatcher`` on Yi-6B (4 slots, 8
     requests, prompts of 16-128 tokens, 16 new tokens each; prompts go token
     by token through decode, so no attention kernel launches), then one
-    Yi-6B serve call under ``torch.profiler``;
+    Yi-6B serve call (4 new tokens) under ``torch.profiler``;
 11. path 7, SSM serving at full published width and depth in bf16:
     ``serve`` on Hymba-1.5B (batch 4, prompt 2048, past its 1024 window, 32
     new tokens; exactly 32 ``flash_attention`` launches, all on the
@@ -154,11 +162,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     ``rwkv6`` launches) and a ``ContinuousBatcher`` on RWKV6-3B (4 slots, 8
     requests, prompts of 16-128 tokens, 16 new tokens each; exactly one
     ``rwkv6`` launch per layer and decode step, nothing else), then
-    one serve call of each model (8 new tokens) under ``torch.profiler``
+    one serve call of each model (4 new tokens) under ``torch.profiler``
     (the profiles report each flash kernel's device time apart), and decode
-    alone (batch 4 after a 128-token prefill; depth cut to 8 of the 32
-    layers, 16 timed steps) by the kernels and with the mixers' plain
-    versions, in turns: kernels, SSM launches, device and wall ms per step;
+    alone (batch 4 after a 128-token prefill; depth cut to 4 of the 32
+    layers, 4 profiled and 16 timed steps) by the kernels and with the
+    mixers' plain versions, in turns: kernels, SSM launches, device and
+    wall ms per step;
 12. path 9, ``path9_lm_fl``, an LM as the FL global model: Yi-6B at its
     full published width (bf16, weights from a seed), depth cut to 2
     layers (0.87 B parameters; full depth, 12.1 GB a copy, does not fit the
@@ -217,11 +226,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     1024), whisper-medium at full depth (AdamW, 4 x 1024 over 1500
     frames), internvl2-76b at 1 layer (SGD with momentum, 2 x (256 +
     512)); ms a step and peak memory; no kernel launches;
-16. path 12, the mesh tooling: three dry-runs start first, each a
+16. path 12, the mesh tooling: six dry-runs start first, each a
     process of its own over a fake group (``python -m
-    repro_torch.launch.dryrun``: yi-6b ``train_4k`` and olmoe-1b-7b
-    ``decode_32k`` on the production 16x16 mesh, and path 10's Yi-6B step
-    on a 1x1 mesh), and run while this process (a) starts a one-rank NCCL
+    repro_torch.launch.dryrun``: yi-6b ``train_4k``, olmoe-1b-7b
+    ``decode_32k``, hymba-1.5b ``prefill_32k`` at full depth and width
+    through the kernel ops (``--impl flash``) and rwkv6-3b's smoke
+    ``train_4k``, whose batch of 8 is smaller than the data axis, on the
+    production 16x16 mesh; path 10's Yi-6B step and path 6's Yi-6B prefill
+    (4 x 1024, full depth, ``--impl flash``) on a 1x1 mesh), and run while
+    this process (a) starts a one-rank NCCL
     group and a 1x1 cuda mesh, lays Yi-6B, RWKV6-3B and Hymba-1.5B (full
     width, 2 layers, bf16) out by ``param_specs`` as DTensors, and runs a
     prefill of 4 x 1024 by the kernels (on the local shards through
@@ -232,10 +245,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     FedRank round under ``VmappedExecutor(mesh=)`` the 1x1 mesh and under
     ``mesh=None`` (equal cohorts, params within 1e-6, host s each); (c)
     reads the dry-runs (each ``ok``, its cost counter exact on a sharded
-    MLP under this torch; per-device FLOPs, bytes, wire bytes, seconds and
-    roofline rows); (d) prints the 1x1 cost's compute and
+    MLP under this torch; the flash ones through their kernel ops, one call
+    a layer; per-device FLOPs, bytes, wire bytes, seconds and
+    roofline rows); (d) prints the 1x1 train cost's compute and
     memory terms beside the ms path 10 measured (or 5 steps measured here
-    when path 10 did not run);
+    when path 10 did not run), and the 1x1 prefill's beside path 6's
+    prefill measured here (3 calls after a warm-up; serve()'s first call in
+    path 6 beside it);
 17. a ``summary`` line (each step's status, host seconds, its phases'
     seconds, largest error and device idle shares; printed also when a step
     fails, before the error),
@@ -2040,21 +2056,14 @@ LM_TOL = 1e-4                # CPU vs card, smoke configs: fp32 sums in another 
 FULL_WIDTH_TOL = 1e-4        # full width, 2 layers, fp32: x max(1, max |logit|)
 
 
-def flash_pairs(s, causal, window):
-    """The (query, key) pairs the mask allows in one head of one sequence."""
-    import numpy as np
-
-    q = np.arange(s, dtype=np.int64)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
-    hi = q if causal else np.full(s, s - 1, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def flash_bound_ms(b, s, h, kv, dh, causal, window, elt):
     """Least time: 4 Dh operations (q.k and p.v) per allowed pair and head
+    (``kernels/work.py``'s formula, which the dry-run's counter books too)
     over the inputs' rate (bf16 tensor cores, or fp32 on the CUDA cores), or
     q + k + v read once and o written once over HBM bandwidth."""
-    ops = 4.0 * dh * flash_pairs(s, causal, window) * b * h
+    from repro_torch.kernels.work import flash_flops
+
+    ops = flash_flops(b, s, h, dh, causal, window)
     nbytes = float(elt) * (2 * b * s * h * dh + 2 * b * s * kv * dh)
     rate = H100_FP32_FLOPS if elt == 4 else H100_BF16_FLOPS
     t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
@@ -2220,6 +2229,89 @@ def phase_flash_timings(torch, card):
     return rows
 
 
+def call_us(torch, fn, calls):
+    """Host microseconds of each of ``calls`` calls of ``fn``, from the call
+    to its return, the card idle before each (what a call costs the host,
+    not the kernel's time)."""
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(1e6 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_op_route(torch, card, kernel, op_name, op, direct, counter, shape, args,
+                   kwargs=None, calls=400, turns=4):
+    """The dispatcher op (``op``, the public function the model calls)
+    against a direct call of its CUDA wrapper (``direct``) on the same
+    inputs: the same bits; exactly one launch a call each on ``counter``;
+    the host microseconds a call of each (medians, in turns)."""
+    kwargs = kwargs or {}
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    before = counter.launches
+    got = outs(op(*args, **kwargs))
+    require(counter.launches == before + 1, f"{op_name}: {counter.launches - before} "
+                                            "launches for one op call")
+    before = counter.launches
+    want = outs(direct(*args, **kwargs))
+    require(counter.launches == before + 1, f"{kernel}: {counter.launches - before} "
+                                            "launches for one direct call")
+    torch.cuda.synchronize()
+    require(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{op_name} differs from the direct {kernel} launch")
+    times = {"op": [], "direct": []}
+    for _ in range(turns):
+        times["op"] += call_us(torch, lambda: op(*args, **kwargs), calls // turns)
+        times["direct"] += call_us(torch, lambda: direct(*args, **kwargs), calls // turns)
+    row = dict(kernel=kernel, op=op_name, shape=shape, calls=calls, bit_equal=True,
+               launches_per_call=1, op_host_us=statistics.median(times["op"]),
+               direct_host_us=statistics.median(times["direct"]))
+    row["op_minus_direct_us"] = row["op_host_us"] - row["direct_host_us"]
+    emit(phase="op_route", card=card, **row)
+    return row
+
+
+def phase_flash_op_route(torch, card):
+    """``repro_torch::flash_attention`` against ``flash_attention_cuda`` at
+    Yi-6B's prefill shape (B=4, S=1024, 32 heads over 4, Dh=128, bf16)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    c = FA_MAIN_CASES["yi_prefill"]
+    q, k, v = flash_inputs(torch, c["b"], c["s"], c["kv"] * c["g"], c["kv"], c["dh"],
+                           torch.bfloat16, seed=7)
+    return {"yi_prefill": phase_op_route(
+        torch, card, "flash_attention", "repro_torch::flash_attention", flash_attention,
+        flash_attention_cuda, flash_attention_cuda, "yi_prefill", (q, k, v),
+        dict(causal=True, window=None))}
+
+
+def phase_ssm_op_route(torch, card):
+    """``repro_torch::selective_scan`` and ``repro_torch::wkv6`` against
+    ``selective_scan_cuda`` and ``wkv6_cuda`` at a decode step (B=4, T=1)
+    of Hymba-1.5B (inner 1600, state 16, B and C strided) and of RWKV6-3B
+    (40 heads of 64): decode is host-bound, 32 such calls a step."""
+    from repro_torch.kernels.mamba.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba.ops import selective_scan
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.rwkv6.ops import wkv6_heads
+
+    return {
+        "hymba_decode": phase_op_route(
+            torch, card, "mamba", "repro_torch::selective_scan", selective_scan,
+            selective_scan_cuda, selective_scan_cuda, "hymba_decode",
+            scan_inputs(torch, 4, 1, 1600, 16, seed=5, model=True)),
+        "rwkv6_decode": phase_op_route(
+            torch, card, "rwkv6", "repro_torch::wkv6", wkv6_heads, wkv6_cuda, wkv6_cuda,
+            "rwkv6_decode", wkv_inputs(torch, 4, 1, 40, 64, seed=5, decay="model")),
+    }
+
+
 def tree_to(tree, device):
     return {k: (tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -2329,6 +2421,8 @@ def phase_serving_path(torch):
         require(mma == launched, f"{arch}: {mma} of {launched} bf16 prefill launches "
                                  "on the tensor-core kernel")
         runs[label] = launched
+        if label == "yi-6b":
+            _PATH6["yi_prefill_s"] = stats["prefill_s"]
         emit(phase="serve", path="lm_serving", model=arch, layers=cfg.n_layers,
              params=cfg.param_count(), batch=batch, prompt=prompt, gen=gen, **stats,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2367,12 +2461,12 @@ def phase_serving_path(torch):
 
 
 def phase_serve_profile(torch):
-    """One Yi-6B serve call (batch 4, prompt 1024, 8 new tokens; weights
+    """One Yi-6B serve call (batch 4, prompt 1024, 4 new tokens; weights
     drawn inside the call) under torch.profiler."""
     from repro_torch.launch.serve import serve
 
     wall, rows, dev_us, _ = device_profile(
-        torch, lambda: serve("yi-6b", smoke=False, batch=4, prompt_len=1024, gen=8,
+        torch, lambda: serve("yi-6b", smoke=False, batch=4, prompt_len=1024, gen=4,
                              verbose=False, device="cuda"))
     busy_s = sum(dev_us(e) for e in rows) / 1e6
     flash = kernel_times(rows, dev_us, "flash_fwd")
@@ -2450,11 +2544,13 @@ def scan_bound_ms(b, t, inner, state):
     over HBM bandwidth; or 7 fp32 operations per (b, t, c, s) (the exp
     counted as one) plus one per (b, t, c) over the fp32 rate; or one exp
     per (b, t, c, s) over the special-function units' 16 a clock and SM
-    (H100_SFU_EXPS), the larger at Hymba's shapes."""
+    (H100_SFU_EXPS), the larger at Hymba's shapes (``kernels/work.py``'s
+    formulas, which the dry-run's counter books too)."""
+    from repro_torch.kernels.work import scan_exps, scan_ops
+
     nbytes = 4.0 * (3 * b * t * inner + 2 * b * t * state + inner * state
                     + 2 * b * inner * state)
-    ops = float(b) * t * inner * (7 * state + 1)
-    return ssm_bound_ms(nbytes, ops, float(b) * t * inner * state)
+    return ssm_bound_ms(nbytes, scan_ops(b, t, inner, state), scan_exps(b, t, inner, state))
 
 
 # Path 7's shape: Hymba's prefill, batch 4 x 2048 tokens, inner 1600, state 16
@@ -2529,10 +2625,12 @@ def wkv_bound_ms(b, t, h, n):
     over HBM bandwidth; or 5 n^2 + 4 n fp32 operations per token and head
     (r.S; w S + k v; the bonus term; the exp) over the fp32 rate; or one exp
     per (token, head, row) over the special-function units' rate
-    (H100_SFU_EXPS)."""
+    (H100_SFU_EXPS) (``kernels/work.py``'s formulas, which the dry-run's
+    counter books too)."""
+    from repro_torch.kernels.work import wkv_exps, wkv_ops
+
     nbytes = 4.0 * (5 * b * t * h * n + h * n + 2 * b * h * n * n)
-    ops = float(b) * t * h * (5 * n * n + 4 * n)
-    return ssm_bound_ms(nbytes, ops, float(b) * t * h * n)
+    return ssm_bound_ms(nbytes, wkv_ops(b, t, h, n), wkv_exps(b, t, h, n))
 
 
 # Path 7's shape: RWKV6-3B's prefill, batch 4 x 1024 tokens, 40 heads of 64
@@ -2720,14 +2818,14 @@ def phase_ssm_serving_path(torch):
 
 
 def phase_ssm_serve_profile(torch):
-    """One serve call of each model (batch 4, its path-7 prompt, 8 new
+    """One serve call of each model (batch 4, its path-7 prompt, 4 new
     tokens; weights drawn inside the call) under torch.profiler."""
     from repro_torch.launch.serve import serve
 
     for arch, prompt, names in (("hymba-1.5b", 2048, ("selective_scan", "flash_fwd")),
                                 ("rwkv6-3b", 1024, ("wkv6",))):
         wall, rows, dev_us, _ = device_profile(
-            torch, lambda: serve(arch, smoke=False, batch=4, prompt_len=prompt, gen=8,
+            torch, lambda: serve(arch, smoke=False, batch=4, prompt_len=prompt, gen=4,
                                  verbose=False, device="cuda"))
         busy_s = sum(dev_us(e) for e in rows) / 1e6
         top = sorted(rows, key=dev_us, reverse=True)[:8]
@@ -2740,14 +2838,14 @@ def phase_ssm_serve_profile(torch):
         torch.cuda.empty_cache()
 
 
-def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=8, steps=16,
-                             layers=8):
+def phase_ssm_decode_profile(torch, batch=4, prompt=128, warm=3, profiled=4, steps=16,
+                             layers=4):
     """Decode alone, Hymba-1.5B and RWKV6-3B at full width and depth cut to
     ``layers`` of their 32 (bf16, batch 4, after a 128-token prefill; the
     serving checks above run them whole): the serving loops' in-place step by
     the kernels (this tree's route), and the same step with the mixers'
     ops swapped for their plain versions (the route decode took before
-    SSM decode went through the kernels), in turns.  Each window: 8 steps
+    SSM decode went through the kernels), in turns.  Each window: 4 steps
     under torch.profiler (device kernels, SSM-kernel events and device
     busy ms per step; SSM-kernel launches per step from the wrappers'
     counters, which must be one a layer) and 16 unprofiled steps (wall ms
@@ -3852,16 +3950,31 @@ MESH_MODELS = (("yi-6b", 2), ("rwkv6-3b", 2), ("hymba-1.5b", 2))
 MESH_PREFILL = dict(batch=4, prompt=1024, decode=8)
 MESH_TRAIN = dict(arch="yi-6b", layers=2, batch=4, seq=1024, steps=3)
 # the dry-runs, each a process of its own (a fake 256-rank group is the
-# default group there): the production mesh's two combinations, and path
-# 10's Yi-6B step on a 1x1 mesh for the counter's roofline terms
+# default group there): the production mesh's combinations (Hymba's prefill
+# at full depth and width through the kernel ops; RWKV6's smoke train step,
+# whose batch of 8 is smaller than the data axis), path 10's Yi-6B step on
+# a 1x1 mesh for the counter's roofline terms, and path 6's Yi-6B prefill
+# (4 x 1024, full depth) through the kernel ops on a 1x1 mesh
 MESH_DRYRUNS = {
     "yi-6b/train_4k": ["--arch", "yi-6b", "--shape", "train_4k"],
     "olmoe-1b-7b/decode_32k": ["--arch", "olmoe-1b-7b", "--shape", "decode_32k"],
     "path10_step": ["--arch", "yi-6b", "--shape", "train_4k", "--mesh", "1x1",
                     "--layers", str(LM_TRAIN["layers"]), "--batch", str(LM_TRAIN["batch"]),
                     "--seq", str(LM_TRAIN["seq"])],
+    "hymba-1.5b/prefill_32k/flash": ["--arch", "hymba-1.5b", "--shape", "prefill_32k",
+                                     "--impl", "flash"],
+    "rwkv6-3b/train_4k/smoke": ["--arch", "rwkv6-3b", "--shape", "train_4k", "--smoke"],
+    "path6_prefill/flash": ["--arch", "yi-6b", "--shape", "prefill_32k", "--mesh", "1x1",
+                            "--batch", "4", "--seq", "1024", "--impl", "flash"],
+}
+# the kernel ops a flash dry-run must go through: (op, calls a layer)
+MESH_DRYRUN_KERNELS = {
+    "hymba-1.5b/prefill_32k/flash": {"repro_torch::flash_attention": 1,
+                                     "repro_torch::selective_scan": 1},
+    "path6_prefill/flash": {"repro_torch::flash_attention": 1},
 }
 _PATH10: dict = {}           # path 10's measured ms a step, when it ran first
+_PATH6: dict = {}            # serve()'s Yi-6B prefill seconds in path 6, when it ran first
 
 
 def start_dryruns():
@@ -4057,7 +4170,12 @@ def phase_mesh_dryruns(torch, procs):
     """(c) and (d): every dry-run process's record; ``ok`` each, its
     per-device FLOPs, bytes and wire bytes, seconds and roofline row; for
     path 10's step on the 1x1 mesh, the compute and memory terms beside the
-    ms path 10 measured (or 5 steps measured here when it did not run)."""
+    ms path 10 measured (or 5 steps measured here when it did not run); for
+    path 6's Yi-6B prefill through the kernel ops on the 1x1 mesh, the terms
+    beside that prefill measured here after a warm-up (and serve()'s first
+    call in path 6, when it ran).  The flash dry-runs must go through their
+    kernel ops, one call a layer."""
+    from repro_torch.configs import get_model_config
     from repro_torch.launch.roofline import row_from_record
 
     recs = {}
@@ -4069,9 +4187,17 @@ def phase_mesh_dryruns(torch, procs):
         # the counter's per-device FLOPs of a sharded MLP, exact on this torch
         check = rec["counter_check"]
         require(check["dot_flops"] == check["expected"], (name, check))
+        if name in MESH_DRYRUN_KERNELS:        # one kernel op call a layer
+            layers = get_model_config(rec["arch"], smoke=rec["smoke"]).n_layers
+            want = {op: n * layers for op, n in MESH_DRYRUN_KERNELS[name].items()}
+            require(rec["hlo"]["kernel_calls"] == want,
+                    (name, rec["hlo"]["kernel_calls"], want))
         row = row_from_record(rec)
         recs[name] = (rec, row)
-        emit(phase="mesh_dryrun", run=name, mesh=rec["mesh"], chips=rec["chips"],
+        emit(phase="mesh_dryrun", run=name, arch=rec["arch"], shape=rec["shape"],
+             impl=rec["impl"], smoke=rec["smoke"], cut=rec.get("cut"),
+             mesh=rec["mesh"], chips=rec["chips"],
+             kernel_calls=rec["hlo"]["kernel_calls"],
              seconds=rec["seconds"], flops_per_device=rec["hlo"]["flops_per_device"],
              dot_flops_per_device=rec["hlo"]["dot_flops_per_device"],
              bytes_per_device=rec["hlo"]["bytes_per_device"],
@@ -4090,7 +4216,50 @@ def phase_mesh_dryruns(torch, procs):
                                                     else "path12_mesh"),
          roofline_over_measured=roof_ms / step_ms,
          note="the memory term counts every eager op's operands and results (unfused)")
+    rec, row = recs["path6_prefill/flash"]
+    b, s = rec["cut"]["global_batch"], rec["cut"]["seq_len"]
+    warm = measure_prefill(torch, b, s)
+    roof_s = max(row.compute_s, row.memory_s)
+    emit(phase="mesh_roofline_vs_card", model="yi-6b",
+         layers=get_model_config("yi-6b").n_layers, batch=b, seq=s, mode="prefill",
+         impl="flash", compute_ms=1e3 * row.compute_s, memory_ms=1e3 * row.memory_s,
+         measured_prefill_s=statistics.median(warm), measured_prefill_runs_s=warm,
+         path6_serve_prefill_s=_PATH6.get("yi_prefill_s"),
+         roofline_over_measured=roof_s / statistics.median(warm),
+         kernel_calls=rec["hlo"]["kernel_calls"],
+         note="the attention core is the kernel op, its work by kernels/work.py's "
+              "formula and its q, k, v and output bytes; the rest counts every eager "
+              "op's operands and results (unfused); measured: path 6's prefill call "
+              "after one warm-up (path6_serve_prefill_s: serve()'s own first call, "
+              "when path 6 ran)")
     return {name: rec["seconds"] for name, (rec, _) in recs.items()}
+
+
+def measure_prefill(torch, batch, prompt, reps=3):
+    """Path 6's Yi-6B prefill (full depth, bf16, weights from a seed, the
+    kernels) as ``serve`` calls it: the seconds of each of ``reps`` calls
+    after one warm-up."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_model_config("yi-6b")
+    params = T.init_params(0, cfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device="cuda")
+    out = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = T.prefill(params, cfg, tokens, max_len=prompt + 32, impl="flash",
+                              last_only=True)
+        torch.cuda.synchronize()
+        if i:
+            out.append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(logits).all()), "path 6 prefill: logits not finite")
+        del logits
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def measure_path10_step(torch, steps=5):
@@ -4267,11 +4436,13 @@ def run_phases(torch, card, only=()):
         with step("flash_attention"):
             fa_err = timed("vs_plain", phase_flash_vs_plain, torch)
             fa_timings = timed("timings", phase_flash_timings, torch, card)
+            fa_op = timed("op_route", phase_flash_op_route, torch, card)
     if want("mamba_rwkv6"):
         with step("mamba_rwkv6"):
             scan_err = timed("mamba_vs_plain", phase_scan_vs_plain, torch)
             wkv_err = timed("rwkv6_vs_plain", phase_wkv_vs_plain, torch)
             ssm_timings = timed("timings", phase_ssm_timings, torch, card)
+            ssm_op = timed("op_route", phase_ssm_op_route, torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
     if want("cpu_vs_card"):
@@ -4409,7 +4580,7 @@ def run_phases(torch, card, only=()):
              main_shape_route=fa_main["route"], max_abs_err_by_route=fa_err,
              launches_by_run=lm_runs, launches_ssm_serving=ssm_counts["flash_attention"],
              launches_zoo_serving=zoo_counts["flash_attention"],
-             launches_by_zoo_run=zoo_runs,
+             launches_by_zoo_run=zoo_runs, op_route=fa_op["yi_prefill"],
              zoo_shapes={k: {f: fa_timings[k][f] for f in
                              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "causal")}
@@ -4420,6 +4591,7 @@ def run_phases(torch, card, only=()):
                           {k: ssm_timings["hymba_prefill"][k]
                            for k in ("b", "t", "inner", "state")}),
              library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs,
+             op_route=ssm_op["hymba_decode"],
              ms_back_to_back=ssm_timings["hymba_prefill"]["ms_back_to_back"],
              launch_config=ssm_timings["hymba_prefill"]["launch"]),
         dict(kernel_entry("rwkv6", "src/repro_torch/csrc/rwkv6.cu",
@@ -4427,6 +4599,7 @@ def run_phases(torch, card, only=()):
                           ssm_counts["rwkv6"], wkv_err, ssm_timings["rwkv6_prefill"],
                           {k: ssm_timings["rwkv6_prefill"][k] for k in ("b", "t", "h", "n")}),
              library_note=SSM_NO_LIBRARY, launches_by_run=ssm_runs,
+             op_route=ssm_op["rwkv6_decode"],
              ms_back_to_back=ssm_timings["rwkv6_prefill"]["ms_back_to_back"],
              launch_config=ssm_timings["rwkv6_prefill"]["launch"]),
     ]

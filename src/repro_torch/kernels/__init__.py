@@ -22,6 +22,14 @@
 ``_build`` compiles each source with ``nvcc`` at first use and binds it with
 ``ctypes``.
 
+The three model kernels are dispatcher ops in the ``repro_torch`` namespace
+(:func:`define_op`): ``repro_torch::flash_attention``,
+``repro_torch::selective_scan`` and ``repro_torch::wkv6``.  Each has a CUDA
+implementation (the launch), a CPU one (the plain version) and a fake one
+(the outputs' shapes, after the launch's data-free checks), so meta and fake
+tensors, ``torch.profiler`` and a dispatch mode all see one op by one name;
+``work`` gives each op's work from its shapes.
+
 The ``flash_attention``, ``mamba`` and ``rwkv6`` kernels have no backward:
 their ops refuse inputs that require grad (:func:`refuse_grad`) on every
 device, so a loss taken through them raises instead of training with
@@ -29,7 +37,36 @@ missing gradients.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+
+
+def define_op(schema: str, cuda: Callable, cpu: Callable, fake: Callable
+              ) -> torch._ops.OpOverload:
+    """Define ``repro_torch::<schema>`` with ``cuda`` for CUDA tensors,
+    ``cpu`` for CPU ones and ``fake`` for meta and fake ones; returns the
+    op's default overload (the cheapest handle to call).  No autograd
+    formula: the public functions refuse inputs that require grad before
+    the call."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+def fresh(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``out`` contiguous and in storage of its own: an op's output may
+    neither alias an input (the plain versions hand back the initial state
+    itself at T = 0) nor differ in layout from what its fake implementation
+    gives (the plain WKV's output is a permuted view).  The same values."""
+    if out.untyped_storage().data_ptr() == like.untyped_storage().data_ptr():
+        return out.clone(memory_format=torch.contiguous_format)
+    return out.contiguous()
 
 
 def refuse_grad(op: str, *tensors: torch.Tensor) -> None:

@@ -81,6 +81,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v must share a dtype: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def check_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the kernels refuse that shapes, dtypes and strides show, without
+    data: dtypes other than fp32 and bf16, H / KV > 64, Dh > 256, B or KV >
+    65535, a last dimension that is not contiguous.  The op's fake
+    implementation runs it too, so a dry-run refuses what the card would."""
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention kernel takes {list(DTYPE_CODES)}, got {q.dtype}")
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    if h // kv > ROWS:
+        raise ValueError(f"flash_attention kernel takes H / KV <= {ROWS}, got {h // kv}")
+    if dh > MAX_DH:
+        raise ValueError(f"flash_attention kernel takes Dh <= {MAX_DH}, got {dh}")
+    if b > MAX_GRID_YZ or kv > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention kernel takes B, KV <= {MAX_GRID_YZ}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
@@ -100,20 +120,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}")
     if k.device != dev or v.device != dev:
         raise ValueError(f"q is on {dev}, k on {k.device}, v on {v.device}")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention kernel takes {list(DTYPE_CODES)}, got {q.dtype}")
+    check_launch(q, k, v)
     b, s, h, dh = q.shape
     kv = k.shape[2]
-    if h // kv > ROWS:
-        raise ValueError(f"flash_attention kernel takes H / KV <= {ROWS}, got {h // kv}")
-    if dh > MAX_DH:
-        raise ValueError(f"flash_attention kernel takes Dh <= {MAX_DH}, got {dh}")
-    if b > MAX_GRID_YZ or kv > MAX_GRID_YZ:
-        raise ValueError(f"flash_attention kernel takes B, KV <= {MAX_GRID_YZ}")
     esz = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous")
         if (dh * esz) % 16 or any((st * esz) % 16 for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(

@@ -86,6 +86,20 @@ def _check(x, dt, Bm, Cm, A, h0) -> None:
             raise ValueError(f"{name} has shape {tuple(tensor.shape)}, expected {shape}")
 
 
+def check_launch(x: torch.Tensor, A: torch.Tensor, h0: torch.Tensor) -> None:
+    """What the kernel refuses that shapes and strides show, without data:
+    state outside 1..64, B > 65535, A or h0 not contiguous.  The op's fake
+    implementation runs it too, so a dry-run refuses what the card would."""
+    state = A.shape[1]
+    if not 1 <= state <= MAX_STATE:
+        raise ValueError(f"selective_scan kernel takes 1 <= state <= {MAX_STATE}, got {state}")
+    if x.shape[0] > MAX_GRID_Y:
+        raise ValueError(f"selective_scan kernel takes B <= {MAX_GRID_Y}, got {x.shape[0]}")
+    for name, tensor in (("A", A), ("h0", h0)):
+        if not tensor.is_contiguous():
+            raise ValueError(f"selective_scan kernel needs {name} contiguous")
+
+
 def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                         Cm: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,15 +119,9 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         return selective_scan_ref(x, dt, Bm, Cm, A, h0)
     if dev.type != "cuda":
         raise ValueError(f"selective_scan runs on cuda or cpu tensors, got {dev}")
+    check_launch(x, A, h0)
     b, t, inner = x.shape
     state = A.shape[1]
-    if not 1 <= state <= MAX_STATE:
-        raise ValueError(f"selective_scan kernel takes 1 <= state <= {MAX_STATE}, got {state}")
-    if b > MAX_GRID_Y:
-        raise ValueError(f"selective_scan kernel takes B <= {MAX_GRID_Y}, got {b}")
-    for name, tensor in (("A", A), ("h0", h0)):
-        if not tensor.is_contiguous():
-            raise ValueError(f"selective_scan kernel needs {name} contiguous")
     y = torch.empty((b, t, inner), dtype=torch.float32, device=dev)
     h_fin = torch.empty((b, inner, state), dtype=torch.float32, device=dev)
     if t == 0 or b == 0 or inner == 0:

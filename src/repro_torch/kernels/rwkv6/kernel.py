@@ -72,6 +72,19 @@ def _check(r, k, v, logw, u, s0) -> None:
         raise ValueError(f"s0 has shape {tuple(s0.shape)}, expected {(b, h, n, n)}")
 
 
+def check_launch(r: torch.Tensor, s0: torch.Tensor) -> None:
+    """What the kernel refuses that shapes and strides show, without data:
+    n outside 1..64, B * H past the grid, s0 not contiguous.  The op's fake
+    implementation runs it too, so a dry-run refuses what the card would."""
+    b, _, h, n = r.shape
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"wkv6 kernel takes 1 <= n <= {MAX_N}, got {n}")
+    if b * h > MAX_HEADS:
+        raise ValueError(f"wkv6 kernel takes B * H <= {MAX_HEADS}")
+    if not s0.is_contiguous():
+        raise ValueError("wkv6 kernel needs s0 contiguous")
+
+
 def launch_config(n: int, heads: int) -> dict:
     """The kernel's launch configuration for width ``n`` and ``heads`` =
     B * H, from the built library (card only): the row capacity, the column
@@ -104,13 +117,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_heads_ref(r, k, v, logw, u, s0)
     if dev.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu tensors, got {dev}")
+    check_launch(r, s0)
     b, t, h, n = r.shape
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"wkv6 kernel takes 1 <= n <= {MAX_N}, got {n}")
-    if b * h > MAX_HEADS:
-        raise ValueError(f"wkv6 kernel takes B * H <= {MAX_HEADS}")
-    if not s0.is_contiguous():
-        raise ValueError("wkv6 kernel needs s0 contiguous")
     u_strides = u.stride() if u.dim() == 3 else (0, *u.stride())   # u shared by the batch
     y = torch.empty((b, t, h, n), dtype=torch.float32, device=dev)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)

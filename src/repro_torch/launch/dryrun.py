@@ -21,16 +21,29 @@ The fake group is the default group, and a process has only one: run the
 dry-run in a process of its own.  ``torch.testing._internal`` holds the fake
 group's store; it is a test utility of PyTorch, not a public API.
 
-Attention takes ``impl="blocked"`` (plain tensor code), as in the
-reference: the hand-written kernels launch through ``ctypes`` on real
-device memory, which fake tensors do not have, so ``impl="flash"`` is
-refused.
+``impl`` is the route the step counts, as the reference's ``impl``:
+
+* ``"blocked"`` (the default, as in the reference): attention's chunked
+  online softmax (:mod:`repro_torch.models.flash_xla`) in plain tensor ops,
+  and the SSM mixers' plain routes (Hymba's Mamba scan a per-token loop,
+  RWKV6's chunkwise WKV), every op counted unfused;
+* ``"naive"``: attention's whole (S, S) scores, the same SSM routes;
+* ``"flash"`` (the reference's ``"pallas"``): prefill attention through
+  ``repro_torch::flash_attention`` and the SSM mixers, prefill and decode,
+  through ``repro_torch::selective_scan`` and ``repro_torch::wkv6``, the
+  kernel ops the card runs.  On meta shards their fake implementations
+  give the outputs' shapes (and refuse what the kernels would refuse); the
+  counter books each op's work by its formula
+  (:mod:`repro_torch.kernels.work`) and its operand and result bytes.  The
+  kernels have no backward, so a ``train`` combination under ``"flash"`` is
+  ``skipped`` with that reason.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
     python -m repro_torch.launch.dryrun --all --out build/dryrun.json
     python -m repro_torch.launch.dryrun --all --multi-pod
     python -m repro_torch.launch.dryrun --all --smoke --mesh 2x4 --device cpu
+    python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape prefill_32k --impl flash
 """
 from __future__ import annotations
 
@@ -64,7 +77,9 @@ from repro_torch.launch.sharding import (
 )
 from repro_torch.models.sharding import use_logical_rules
 
-IMPLS = ("blocked", "naive")
+IMPLS = ("blocked", "naive", "flash")
+NO_BACKWARD = ("impl='flash' has no train step: the flash_attention, mamba and "
+               "rwkv6 kernels have no backward")
 # what the reference's record holds and the port's cannot measure
 NOT_MEASURED = ("memory.temp_size_in_bytes", "memory.generated_code_size_in_bytes",
                 "memory.alias_size_in_bytes", "lower_s", "compile_s", "xla_cost")
@@ -72,11 +87,7 @@ NOT_MEASURED = ("memory.temp_size_in_bytes", "memory.generated_code_size_in_byte
 
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
-        raise ValueError(
-            f"the dry-run cannot take impl={impl!r}: that route sends attention "
-            "through the flash_attention kernel and the SSM mixers through the "
-            "mamba and rwkv6 kernels, whose ctypes launches need real device "
-            f"memory, not fake tensors; use one of {IMPLS}")
+        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
 
 
 def skip_reason(cfg, shape) -> Optional[str]:
@@ -210,7 +221,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_label(mesh),
         "mesh_axes": ax, "chips": math.prod(mesh_shape), "mode": shape.mode,
-        "smoke": smoke, "not_measured": list(NOT_MEASURED),
+        "impl": impl, "smoke": smoke, "not_measured": list(NOT_MEASURED),
     }
     cut = {"n_layers": cfg.n_layers} if "n_layers" in (cfg_overrides or {}) else {}
     if smoke or batch or seq:
@@ -218,6 +229,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     if cut:
         rec["cut"] = cut
     sk = skip_reason(cfg, shape)
+    if not sk and impl == "flash" and shape.mode == "train":
+        sk = NO_BACKWARD
     if sk:
         rec["status"] = "skipped"
         rec["reason"] = sk
@@ -249,6 +262,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             "collective_wire_bytes": cost.coll_wire,
             "collective_wire_bytes_by_axis": dict(sorted(cost.coll_wire_by_axis.items())),
             "unknown_trip_whiles": cost.unknown_trip_whiles,
+            "kernel_calls": dict(sorted(cost.kernel_calls.items())),
         }
         rec["status"] = "ok"
     except Exception as e:
@@ -304,7 +318,11 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
-    ap.add_argument("--impl", default="blocked")
+    ap.add_argument("--impl", default="blocked", choices=IMPLS,
+                    help="the route counted: blocked (default) and naive run "
+                         "attention and the SSM mixers as plain tensor ops, "
+                         "flash sends them through the kernel ops (prefill and "
+                         "decode; train is skipped, the kernels have no backward)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="the smoke configs at cut shapes (a quick check)")
@@ -318,10 +336,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     _quiet()
     resolve_device(args.device)
-    try:
-        _check_impl(args.impl)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
     mesh_shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh else None
 
     runs = []

@@ -14,17 +14,24 @@ output shapes are not counted.  So, per device:
 * **flops** — ``2*M*N*K`` for each matrix product, from the local shapes
   (``dot_flops``, through ``torch.utils.flop_counter``'s formulas), plus
   output elements for each pointwise op and input elements for each
-  reduction;
+  reduction.  The kernel ops (``repro_torch::flash_attention``,
+  ``::selective_scan``, ``::wkv6``: the dry-run's ``impl="flash"``) count
+  their work by :func:`repro_torch.kernels.work.op_work`, the formulas of
+  ``chip_smoke.py``'s bound column: flash attention's two products over the
+  unmasked pairs as ``dot_flops``, the scans' operations as ``flops`` only;
 * **bytes** — each local op's operand and result bytes.  This is an eager,
   unfused count: every op reads its inputs from and writes its outputs to
-  device memory, where a fused program keeps intermediates on chip.  Views
+  device memory, where a fused program keeps intermediates on chip (for a
+  kernel op, which is fused, it is its real traffic).  Views
   and metadata ops cost nothing; ``convert_bytes`` is the part of ``bytes``
   spent in dtype conversions;
 * **collective bytes** — per kind (the reference's names), with wire bytes
   under the reference's ring model (:func:`_collective_cost`).
 
 ``Cost`` keeps the reference's fields; ``unknown_trip_whiles`` is always 0
-(eager Python loops have no trip counts to miss).
+(eager Python loops have no trip counts to miss).  ``kernel_calls`` counts
+the kernel ops' calls by name, so a record shows which kernels its step
+went through.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.kernels.work import op_work
 
 # functional collectives (what DTensor's redistributions issue) -> the
 # reference's HLO collective names
@@ -73,6 +82,7 @@ class Cost:
     unknown_trip_whiles: int = 0
     dot_flops: float = 0.0            # matrix products (inside ``flops``)
     coll_wire_by_axis: Dict[str, float] = field(default_factory=dict)  # mesh axis -> wire
+    kernel_calls: Dict[str, int] = field(default_factory=dict)  # repro_torch op -> calls
 
     def add(self, other: "Cost", scale: float = 1.0) -> None:
         self.flops += scale * other.flops
@@ -85,6 +95,8 @@ class Cost:
         self.dot_flops += scale * other.dot_flops
         for a, v in other.coll_wire_by_axis.items():
             self.coll_wire_by_axis[a] = self.coll_wire_by_axis.get(a, 0.0) + scale * v
+        for a, n in other.kernel_calls.items():
+            self.kernel_calls[a] = self.kernel_calls.get(a, 0) + n
 
 
 def tensor_bytes(t: torch.Tensor) -> float:
@@ -206,7 +218,15 @@ class CostCounter(TorchDispatchMode):
         if name in ("_to_copy", "to") and tin and touts and tin[0].dtype != touts[0].dtype:
             c.convert_bytes += nbytes
         packet = func.overloadpacket
-        if packet in flop_registry:
+        if ns == "repro_torch":
+            given = len(args)
+            vals = [*args] + [kwargs[a.name] for a in func._schema.arguments[given:]
+                              if a.name in kwargs]
+            f, dot = op_work(name, vals)
+            c.flops += f
+            c.dot_flops += dot
+            c.kernel_calls[f"{ns}::{name}"] = c.kernel_calls.get(f"{ns}::{name}", 0) + 1
+        elif packet in flop_registry:
             f = float(flop_registry[packet](*args, **kwargs, out_val=out))
             c.dot_flops += f
             c.flops += f

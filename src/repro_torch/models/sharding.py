@@ -194,6 +194,19 @@ def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
     return pin_grad(x.reshape(*shape))
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` (..., k) and a 2-D ``w``.  On a DTensor the
+    leading dimensions are folded into one by :func:`reshape` before the
+    product and unfolded after it, so the folded gradient comes back in the
+    forward layout: DTensor's backward of a product may shard the folded
+    token dimension over an axis that the batch is too short for, and
+    could not unfold it (RWKV6 with a batch smaller than ``data``)."""
+    if not isinstance(x, DTensor) or x.ndim <= 2:
+        return x @ w
+    lead = x.shape[:-1]
+    return reshape(reshape(x, math.prod(lead), x.shape[-1]) @ w, *lead, w.shape[-1])
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; on DTensors the vocabulary-parallel lookup (the
     ``local_map`` pattern): each rank looks up, in its rows of the table,

@@ -44,7 +44,7 @@ from repro_torch.kernels.mamba.ref import selective_scan_ref
 from repro_torch.kernels.rwkv6.ops import wkv6_heads
 from repro_torch.kernels.rwkv6.ref import wkv6_heads_ref
 from repro_torch.models.layers import dense_init_on, normal_on
-from repro_torch.models.sharding import local_map_channels, reshape, shard
+from repro_torch.models.sharding import local_map_channels, matmul, reshape, shard
 
 IMPLS = ("xla", "cuda")
 
@@ -253,8 +253,8 @@ def rwkv_channel_mix(p: Dict, x: torch.Tensor, x_prev_last: torch.Tensor
     x_prev = _shifted(x, x_prev_last)
     xk = x + (x_prev - x) * p["mu"][0]
     xr = x + (x_prev - x) * p["mu"][1]
-    k = torch.square(F.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    k = torch.square(F.relu(matmul(xk, p["wk"])))
+    out = torch.sigmoid(matmul(xr, p["wr"])) * matmul(k, p["wv"])
     return shard(out, "batch", "seq", "embed"), x[:, -1]
 
 

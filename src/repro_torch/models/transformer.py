@@ -428,10 +428,10 @@ def _decode_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     returns the layer's new caches.  ``cross_kv``: this layer's (k, v) of
     the encoder output (whisper).  Under ``impl="flash"`` (the default) the
     SSM mixers go through the kernels' ops (on the card the ops launch the
-    kernels, on the CPU they take the plain versions); any other ``impl``
-    takes their plain versions on any device, as the reference's decode
-    does (the dry-run's meta tensors reach no kernel).  An MoE layer routes
-    the B tokens and drops its aux, as the reference does."""
+    kernels, on the CPU they take the plain versions, on the dry-run's meta
+    tensors their fake implementations); any other ``impl`` takes their
+    plain versions on any device, as the reference's decode does.  An MoE
+    layer routes the B tokens and drops its aux, as the reference does."""
     h = apply_norm(cfg.norm, lp["norm1"], x)
     if cfg.attention == "none":
         st = cache["rwkv"]

@@ -7,7 +7,16 @@ one default group), all started together by one fixture:
   gives ``ok`` for every arch's smoke config in each mode (train with the
   AdamW update, prefill, decode) on a fake 2x4 mesh, and its records make
   roofline rows;
-* ``--impl flash`` is refused with a message that names the kernel route;
+* ``--all --smoke --mesh 2x4 --device cpu --impl flash`` gives ``ok`` for
+  every prefill and decode combination, counted through the kernel ops
+  (``repro_torch::flash_attention``, ``::selective_scan``, ``::wkv6``, one
+  call a layer), and a ``skipped`` record naming the missing backward for
+  every ``train_4k``;
+* on a fake 1x1 mesh, Yi's smoke prefill under ``naive`` and under
+  ``flash`` differ in ``dot_flops_per_device`` by exactly the naive route's
+  two full (S, S) products less the kernel's masked count, a layer each;
+* ``--all --smoke --mesh 4x2 --batch 2 --device cpu`` (a batch smaller than
+  the ``data`` axis) gives ``ok`` or ``skipped`` everywhere;
 * on a fake 2x4 mesh, a column-then-row-parallel MLP's per-device FLOPs are
   exactly ``2MNK/g`` per product (no global-shape op counted as well), and
   its collective bytes follow the ring model.
@@ -70,19 +79,39 @@ def runs():
         start(f"smoke{i}", ["-m", "repro_torch.launch.dryrun", "--smoke", "--mesh", "2x4",
                             "--device", "cpu", "--arch", ",".join(archs),
                             "--shape", ",".join(SHAPES), "--out", str(tmp / f"smoke{i}.json")])
-    start("flash", ["-m", "repro_torch.launch.dryrun", "--arch", "yi-6b", "--shape",
-                    "train_4k", "--impl", "flash", "--device", "cpu"])
+    start("flash", ["-m", "repro_torch.launch.dryrun", "--all", "--smoke", "--mesh", "2x4",
+                    "--device", "cpu", "--impl", "flash", "--out", str(tmp / "flash.json")])
+    for impl in ("naive", "flash"):
+        start(f"yi1x1_{impl}", ["-m", "repro_torch.launch.dryrun", "--arch", "yi-6b",
+                                "--shape", "prefill_32k", "--smoke", "--mesh", "1x1",
+                                "--device", "cpu", "--impl", impl,
+                                "--out", str(tmp / f"yi1x1_{impl}.json")])
+    # --all, its archs split over two processes
+    for i in range(2):
+        start(f"batch{i}", ["-m", "repro_torch.launch.dryrun", "--smoke", "--mesh", "4x2",
+                            "--batch", "2", "--device", "cpu", "--arch", ",".join(ARCHS[i::2]),
+                            "--out", str(tmp / f"batch{i}.json")])
     start("mlp", ["-c", MLP, str(tmp / "mlp.json")])
     out = {name: (p.communicate(timeout=600)[0], p.returncode) for name, p in jobs.items()}
-    recs = []
-    for i in range(len(groups)):
-        log, rc = out[f"smoke{i}"]
+
+    def _mlp(out, tmp):
+        log, rc = out["mlp"]
         assert rc == 0, log[-3000:]
-        recs += json.loads((tmp / f"smoke{i}.json").read_text())
-    log, rc = out["mlp"]
-    assert rc == 0, log[-3000:]
-    return {"records": {(r["arch"], r["shape"]): r for r in recs},
-            "flash": out["flash"], "mlp": json.loads((tmp / "mlp.json").read_text())}
+        return json.loads((tmp / "mlp.json").read_text())
+
+    def records(*names):
+        recs = []
+        for name in names:
+            log, rc = out[name]
+            assert rc == 0, log[-3000:]
+            recs += json.loads((tmp / f"{name}.json").read_text())
+        return {(r["arch"], r["shape"]): r for r in recs}
+
+    return {"records": records(*(f"smoke{i}" for i in range(len(groups)))),
+            "flash": records("flash"), "batch": records("batch0", "batch1"),
+            "yi1x1": {impl: records(f"yi1x1_{impl}")[("yi-6b", "prefill_32k")]
+                      for impl in ("naive", "flash")},
+            "mlp": _mlp(out, tmp)}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -106,10 +135,64 @@ def test_smoke_dry_run_partitions_on_a_fake_2x4_mesh(runs, arch, shape):
     assert row.dominant in ("compute", "memory", "collective") and row.compute_s > 0
 
 
-def test_dry_run_refuses_the_kernel_route(runs):
-    log, rc = runs["flash"]
-    assert rc != 0
-    assert "flash_attention" in log and "impl='flash'" in log
+def _kernel_calls(arch, mode):
+    """The kernel ops one smoke step goes through, a call a layer."""
+    from repro_torch.configs import get_model_config
+
+    cfg = get_model_config(arch, smoke=True)
+    n = cfg.n_layers
+    if arch == "rwkv6-3b":
+        return {"repro_torch::wkv6": n}
+    calls = {}
+    if mode == "prefill":
+        calls["repro_torch::flash_attention"] = n + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    if arch == "hymba-1.5b":
+        calls["repro_torch::selective_scan"] = n
+    return calls
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_flash_dry_run_goes_through_the_kernel_ops(runs, arch, shape):
+    rec = runs["flash"][(arch, shape)]
+    assert rec["impl"] == "flash" and rec["mesh"] == "2x4"
+    if rec["mode"] == "train":
+        assert rec["status"] == "skipped"
+        assert "no backward" in rec["reason"] and "flash_attention" in rec["reason"]
+        return
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["hlo"]["kernel_calls"] == _kernel_calls(arch, rec["mode"])
+    assert rec["hlo"]["flops_per_device"] >= rec["hlo"]["dot_flops_per_device"] > 0
+
+
+def test_flash_route_counts_the_kernels_masked_products(runs):
+    """Yi's smoke prefill on a 1x1 mesh: the naive route's two (S, S)
+    products, 4 B H S^2 Dh a layer, become the kernel's formula over the
+    causal pairs; every other product is counted alike."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels.work import flash_flops
+    from repro_torch.models.transformer import _window
+
+    cfg = get_model_config("yi-6b", smoke=True)
+    naive, flash = runs["yi1x1"]["naive"], runs["yi1x1"]["flash"]
+    assert naive["status"] == flash["status"] == "ok"
+    b, s = flash["cut"]["global_batch"], flash["cut"]["seq_len"]
+    h, dh = cfg.n_heads, cfg.head_dim
+    diff = naive["hlo"]["dot_flops_per_device"] - flash["hlo"]["dot_flops_per_device"]
+    assert diff == cfg.n_layers * (4 * b * h * s * s * dh
+                                   - flash_flops(b, s, h, dh, True, _window(cfg)))
+    assert flash["hlo"]["kernel_calls"] == {"repro_torch::flash_attention": cfg.n_layers}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dry_run_with_a_batch_below_the_data_axis(runs, arch):
+    """Batch 2 on a 4x2 mesh: the batch stays whole on ``data``; RWKV6's
+    train step once failed there in DTensor's backward."""
+    recs = [r for (a, _), r in runs["batch"].items() if a == arch]
+    assert len(recs) == 4
+    for rec in recs:
+        assert rec["status"] in ("ok", "skipped"), (rec["shape"], rec.get("error"))
+        assert rec["cut"]["global_batch"] == 2 and rec["mesh"] == "4x2"
 
 
 def test_counter_gives_exact_per_device_flops_on_a_sharded_mlp(runs):

@@ -128,9 +128,14 @@ def test_wrapper_refuses_malformed_inputs(bad, match):
 
 
 def test_other_devices_are_refused():
+    """The CUDA wrapper takes cuda and cpu tensors only.  The op
+    (``repro_torch::flash_attention``) takes meta tensors too, through its
+    fake implementation: the output's shape, nothing computed."""
     q = torch.zeros(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(q, q, q, causal=True)
+        fa_kernel.flash_attention_cuda(q, q, q, causal=True)
+    out = flash_attention(q, q, q, causal=True)
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 @pytest.mark.parametrize("dtype,dh,route", [

@@ -12,8 +12,10 @@
   ring fractions are the reference's for each collective kind and group size.
 * On two gloo ranks, a ``(1, 2)`` model mesh and a ``(2, 1)`` data mesh: the
   yi, hymba, rwkv6 and olmoe smoke models' prefill logits, 4 decode steps
-  and one train step's loss and gradients against a one-process plain run,
-  and ``VmappedExecutor(mesh=)`` against ``mesh=None``.  Both meshes' rank
+  and one train step's loss and gradients against a one-process plain run
+  (RWKV6's also with a batch smaller than the ``data`` axis: batch 1 on
+  the data mesh, and batch 2 on eight ranks as a (4, 2) mesh), and
+  ``VmappedExecutor(mesh=)`` against ``mesh=None``.  Both meshes' rank
   pairs run at once, each in processes of their own (a process has one
   default group), from ``python tests/test_torch_mesh.py gloo ...``.
 
@@ -236,17 +238,62 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
+def _full(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _loss_and_grads(cfg, params, batch):
+    from repro_torch.fl._tree import tree_leaves, tree_unflatten
+    from repro_torch.models import transformer as T
+
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, _ = T.loss_fn(tree_unflatten(params, live), cfg, batch, impl="blocked")
+    return loss.detach(), torch.autograd.grad(loss, live, allow_unused=True,
+                                              materialize_grads=True)
+
+
+def _train_vs_plain(mesh, cfg, params, tok, b, s):
+    """One train step's loss and gradients on ``mesh`` (train-mode layout:
+    FSDP on "data") against the plain step: the loss's relative error, and
+    each leaf's relative error beside its one-ulp nudge reading."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.fl._tree import tree_leaves, tree_leaves_with_path, tree_unflatten
+    from repro_torch.launch.sharding import P, build_rules, distribute_params, param_specs
+    from repro_torch.models.sharding import use_logical_rules
+
+    shape = ShapeConfig("t", s, b, "train")
+    rules = build_rules(cfg, mesh, shape)
+    dp = distribute_params(params, mesh, param_specs(cfg, params, mesh, "train"))
+    batch = {"tokens": tok[:, :s], "labels": tok[:, 1:s + 1]}
+    l0, g0 = _loss_and_grads(cfg, params, batch)
+    nudged = tree_unflatten(params, [t * (1 + 2.0 ** -23) for t in tree_leaves(params)])
+    _, gn = _loss_and_grads(cfg, nudged, batch)
+    with use_logical_rules(mesh, rules):
+        bspec = {"tokens": P(rules["batch"], None), "labels": P(rules["batch"], None)}
+        l1, g1 = _loss_and_grads(cfg, dp, distribute_params(batch, mesh, bspec))
+    names = ["/".join(path) for path, _ in tree_leaves_with_path(params)]
+    return {"loss": abs(float(_full(l1)) - float(l0)) / abs(float(l0)),
+            "grads": {name: [_rel_err(_full(a), b_), _rel_err(n, b_)]
+                      for name, a, b_, n in zip(names, g1, g0, gn)}}
+
+
+def _tokens(cfg, b, s):
+    return torch.randint(0, cfg.vocab_size, (b, s + 4),
+                         generator=torch.Generator().manual_seed(1))
+
+
 def _gloo_worker(rank, world, init, dims, out):
     """One rank of a 2-rank mesh: every GLOO_ARCHS smoke model's prefill,
     4 decode steps and one train step's loss and gradients, as DTensors and
-    as plain tensors; the vmapped executor with and without the mesh."""
+    as plain tensors (RWKV6's also at batch 1 on the data mesh); the
+    vmapped executor with and without the mesh."""
     import dataclasses
 
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import ShapeConfig, get_model_config
-    from repro_torch.fl._tree import tree_leaves, tree_leaves_with_path, tree_unflatten
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.sharding import (
         P,
@@ -261,15 +308,7 @@ def _gloo_worker(rank, world, init, dims, out):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
     mesh = make_mesh(dims, ("data", "model"), "cpu")
-
-    def full(x):
-        return x.full_tensor() if isinstance(x, DTensor) else x
-
-    def loss_and_grads(cfg, params, batch):
-        live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-        loss, _ = T.loss_fn(tree_unflatten(params, live), cfg, batch, impl="blocked")
-        return loss.detach(), torch.autograd.grad(loss, live, allow_unused=True,
-                                                  materialize_grads=True)
+    full = _full
 
     res = {}
     for arch in GLOO_ARCHS:
@@ -278,8 +317,7 @@ def _gloo_worker(rank, world, init, dims, out):
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_groups=dims[0]))
         b, s, cap = 4, 8, 16
         params = T.init_params(0, cfg, "cpu")
-        tok = torch.randint(0, cfg.vocab_size, (b, s + 4),
-                            generator=torch.Generator().manual_seed(1))
+        tok = _tokens(cfg, b, s)
         r = {}
         # prefill + 4 decode steps (decode-mode layout: the cache on "model")
         shape = ShapeConfig("t", cap, b, "decode")
@@ -301,23 +339,32 @@ def _gloo_worker(rank, world, init, dims, out):
                                        distribute_params(tok[:, s + i], mesh, P(rules["batch"])))
                 gots.append(lg)
         r["logits"] = [_rel_err(full(g), w) for g, w in zip(gots, wants)]
-        # one train step's loss and gradients (train-mode layout: FSDP on "data")
-        shape = ShapeConfig("t", s, b, "train")
-        rules = build_rules(cfg, mesh, shape)
-        dp = distribute_params(params, mesh, param_specs(cfg, params, mesh, "train"))
-        batch = {"tokens": tok[:, :s], "labels": tok[:, 1:s + 1]}
-        l0, g0 = loss_and_grads(cfg, params, batch)
-        nudged = tree_unflatten(params, [t * (1 + 2.0 ** -23) for t in tree_leaves(params)])
-        _, gn = loss_and_grads(cfg, nudged, batch)
-        with use_logical_rules(mesh, rules):
-            bspec = {"tokens": P(rules["batch"], None), "labels": P(rules["batch"], None)}
-            l1, g1 = loss_and_grads(cfg, dp, distribute_params(batch, mesh, bspec))
-        r["loss"] = abs(float(full(l1)) - float(l0)) / abs(float(l0))
-        names = ["/".join(path) for path, _ in tree_leaves_with_path(params)]
-        r["grads"] = {name: [_rel_err(full(a), b_), _rel_err(n, b_)]
-                      for name, a, b_, n in zip(names, g1, g0, gn)}
+        r.update(_train_vs_plain(mesh, cfg, params, tok, b, s))
         res[arch] = r
+        if arch == "rwkv6-3b" and dims[0] > 1:
+            # a batch smaller than the data axis: the batch rule leaves it whole
+            res["rwkv6-3b/batch1"] = _train_vs_plain(mesh, cfg, params, tok[:1], 1, s)
     res["vmapped"] = _vmapped_vs_plain(mesh)
+    if rank == 0:
+        Path(out).write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _batch_worker(rank, world, init, dims, b, out):
+    """One rank of a mesh whose ``data`` axis is longer than the batch:
+    RWKV6's smoke train step at batch ``b`` against the plain step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    cfg = get_model_config("rwkv6-3b", smoke=True)
+    params = T.init_params(0, cfg, "cpu")
+    res = _train_vs_plain(mesh, cfg, params, _tokens(cfg, b, 8), b, 8)
     if rank == 0:
         Path(out).write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -407,6 +454,13 @@ def gloo_runs():
                 [sys.executable, __file__, "gloo", str(rank), "2", init, tag,
                  str(outs[dims])], env=_env(), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
+    # batch 2 on a (4, 2) mesh: the smallest that met the RWKV6 fault
+    outs["batch"] = tmp / "batch.json"
+    for rank in range(8):
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "batch", str(rank), "8", f"file://{tmp}/batch.rdzv",
+             "4x2", "2", str(outs["batch"])], env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     outs["host"] = tmp / "host.json"
     procs.append(subprocess.Popen([sys.executable, __file__, "host", str(outs["host"])],
                                   env=_env(), stdout=subprocess.PIPE,
@@ -451,6 +505,20 @@ def test_sharded_train_step_matches_plain(gloo_runs, arch, dims):
         assert err < _grad_bound(arch, nudge), (leaf, err, nudge)
 
 
+@pytest.mark.parametrize("case", ["2x1-batch1", "4x2-batch2"])
+def test_rwkv6_train_step_with_a_batch_below_the_data_axis_matches_plain(gloo_runs, case):
+    """Batch 1 on the (2, 1) mesh and batch 2 on the (4, 2) one: on the
+    latter, DTensor's backward of RWKV6's channel mix once sharded the
+    flattened token dimension over ``data`` and could not unflatten it
+    (``models.sharding.matmul`` keeps that gradient in the forward
+    layout)."""
+    r = (gloo_runs[(2, 1)]["rwkv6-3b/batch1"] if case == "2x1-batch1"
+         else gloo_runs["batch"])
+    assert r["loss"] < 1e-5, r["loss"]
+    for leaf, (err, nudge) in r["grads"].items():
+        assert err < _grad_bound("rwkv6-3b", nudge), (leaf, err, nudge)
+
+
 @pytest.mark.parametrize("dims", GLOO_MESHES, ids=lambda d: "x".join(map(str, d)))
 @pytest.mark.parametrize("init", ["shared", "stacked"])
 def test_vmapped_executor_on_a_mesh_matches_no_mesh(gloo_runs, dims, init):
@@ -462,6 +530,10 @@ def test_vmapped_executor_on_a_mesh_matches_no_mesh(gloo_runs, dims, init):
 if __name__ == "__main__":
     if sys.argv[1] == "host":
         _host_worker(sys.argv[2])
+    elif sys.argv[1] == "batch":
+        _, _, rank, world, init, tag, b, out = sys.argv
+        _batch_worker(int(rank), int(world), init, tuple(int(x) for x in tag.split("x")),
+                      int(b), out)
     elif sys.argv[1] == "gloo":
         _, _, rank, world, init, tag, out = sys.argv
         _gloo_worker(int(rank), int(world), init,
