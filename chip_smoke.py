@@ -182,7 +182,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     ``torch.profiler``; then one FedRank round of olmoe-1b-7b at its
     published width (64 experts, top 8), 1 layer, under both executors
     (the same cohort; every leaf, the fp32 router and norms too, within
-    two bf16 ulps at its largest magnitude);
+    two bf16 ulps at its largest magnitude); each round reports its layer
+    checkpoints (``cfg.remat`` holds under the vmapped executor too, one a
+    layer and grad step); then ``lm_fl_remat``: Yi-6B at its published
+    width, 4 layers, a ``fedavg`` round under the vmapped executor (8
+    devices, k=4, l_ep=1, local batch 8, 512-token sequences) with
+    ``remat=True`` and ``remat=False`` from the same init, in turns (on,
+    off, off, on): the same cohort, params within two bf16 ulps, a finite
+    test loss, 4 layer checkpoints a grad step with remat and none without,
+    and the remat round's peak memory (over what it starts with) below the
+    plain round's by at least half the activations predicted from the
+    shapes (one layer's saved tensors x 3 layers x 4 clients; the saved
+    bytes of one layer measured by ``saved_tensors_hooks`` beside it), with
+    both peaks and host s;
 13. ``obs``: observed runs (``FLConfig.observe``) at paths 1 and 5's sizes,
     sync FedRank rounds on ``high-churn`` and async FedRank aggregations on
     ``trace-synthetic-week``, each beside the unobserved run in turns (host
@@ -2964,6 +2976,20 @@ def bf16_ulp(torch, leaf) -> float:
 LM_FL_ULPS = 2
 
 
+def ulp_diffs(torch, ref, got):
+    """Each leaf's largest |difference| between two param trees, and the
+    largest of them in units of its leaf's bf16 ulp (of EXEC_TOL for an fp32
+    leaf)."""
+    from repro_torch.fl._tree import tree_leaves
+
+    diffs, tols = [], []
+    for a, b in zip(tree_leaves(ref), tree_leaves(got)):
+        diffs.append(float((a.float() - b.float()).abs().max()))
+        tols.append(bf16_ulp(torch, a) if a.dtype == torch.bfloat16 else EXEC_TOL)
+    worst = max(d / t if t else (0.0 if d == 0 else math.inf) for d, t in zip(diffs, tols))
+    return diffs, worst
+
+
 def phase_lm_fl_path(torch):
     """Path 9: Yi-6B at its full published width (d_model 4096, 32/4 heads of
     128, FFN 11008, vocab 64000, bf16, weights from a seed), depth cut to 2
@@ -2978,6 +3004,7 @@ def phase_lm_fl_path(torch):
     from repro_torch.configs import get_model_config
     from repro_torch.fl import FLConfig, FLServer, LMTask, build_policy
     from repro_torch.fl._tree import tree_leaves
+    from repro_torch.models import transformer as T
 
     c = LM_FL
     cfg = dataclasses.replace(get_model_config(c["arch"]), n_layers=c["layers"])
@@ -3006,7 +3033,7 @@ def phase_lm_fl_path(torch):
             seen = checked_policy(pol, srv)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            before = read_counts()
+            before, ckpt = read_counts(), T._checkpoint_layer.applied
             res = srv.run_round(pol)
             torch.cuda.synchronize()
             launched = {k: n - before[k] for k, n in read_counts().items()}
@@ -3021,15 +3048,11 @@ def phase_lm_fl_path(torch):
             results[ex] = dict(cohort=res.selected.tolist(), probe=res.probe_set.tolist(),
                                test_loss=res.test_loss, host_s=res.host_time_s,
                                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                               layer_checkpoints=T._checkpoint_layer.applied - ckpt,
                                launches=launched)
             servers[(name, ex)] = (srv, pol)
         s_seq, s_vm = servers[(name, "sequential")][0], servers[(name, "vmapped")][0]
-        diffs, tols = [], []
-        for a, b in zip(tree_leaves(s_seq.global_params), tree_leaves(s_vm.global_params)):
-            diffs.append(float((a.float() - b.float()).abs().max()))
-            tols.append(bf16_ulp(torch, a) if a.dtype == torch.bfloat16 else EXEC_TOL)
-        # the largest difference in units of the leaf's ulp (or of 1e-5)
-        worst = max(d / t if t else (0.0 if d == 0 else math.inf) for d, t in zip(diffs, tols))
+        diffs, worst = ulp_diffs(torch, s_seq.global_params, s_vm.global_params)
         require(results["sequential"]["cohort"] == results["vmapped"]["cohort"]
                 and results["sequential"]["probe"] == results["vmapped"]["probe"],
                 (name, results))
@@ -3059,6 +3082,141 @@ def phase_lm_fl_path(torch):
     del servers, srv
     torch.cuda.empty_cache()
     return counts, runs
+
+
+# lm_fl_remat: Yi-6B at its published width, depth cut to 4 layers (path 10's,
+# 1.22 B parameters), as the FL global model over 512-token sequences: 8
+# devices of 8 sequences, so a fedavg round's k clients make one bucket and
+# take one grad step of the local batch
+LM_FL_REMAT = dict(LM_FL, layers=4, n_devices=8, seq=512, seqs_per_device=8, test_seqs=8)
+
+
+def layer_saved_bytes(cfg, b, s) -> int:
+    """The bytes autograd saves for one dense GQA layer (RMSNorm, RoPE, naive
+    attention, a gated FFN; bf16 weights) over one client's batch of b
+    sequences of s tokens, counted from the shapes.  Each norm: its input,
+    the scaled input and its output (bf16, t x d), the input in fp32, the
+    (t, 1) fp32 sum and bf16 inverse, the bf16 scale.  RoPE: cos and sin
+    (t x Dh/2, fp32) for q and for k.  Attention: q, k and v in fp32 for the
+    two einsums, the (s, s) bool mask, the fp32 probabilities twice (the
+    softmax's output and the combine's contiguous copy) and the bf16 output
+    that ``wo`` reads.  FFN: the gate, its activation, the up projection and
+    their product (t x d_ff, bf16)."""
+    t, d, e = b * s, cfg.d_model, 2                 # tokens, width, bf16 bytes
+    norm = t * d * 4 + t * 4 + t * e + 3 * t * d * e + d * e
+    rope = 4 * t * (cfg.head_dim // 2) * 4
+    attn = (t * cfg.q_dim * 4 + 2 * t * cfg.kv_dim * 4 + s * s
+            + 2 * b * cfg.n_heads * s * s * 4 + t * cfg.q_dim * e)
+    ffn = 4 * t * cfg.d_ff * e
+    return 2 * norm + rope + attn + ffn
+
+
+def measured_saved_bytes(torch, cfg, params, b, s) -> int:
+    """The bytes plain autograd saves for layer 0 over one client's (b, s)
+    batch: distinct storages through ``saved_tensors_hooks``, the weights
+    aside."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.models import transformer as T
+
+    # weights that require grad, as in training: a product saves its other
+    # operand only for an operand that needs a gradient
+    lp = tree_map(lambda t: t.detach().requires_grad_(True), T.layer_params(params["layers"], 0))
+    weights = {t.untyped_storage().data_ptr() for t in tree_leaves(lp)}
+    x = torch.randn(b, s, cfg.d_model, device="cuda").to(getattr(torch, cfg.dtype))
+    x.requires_grad_(True)
+    held = []
+
+    # the nodes keep nothing (a saved output packed into its own node would
+    # make a cycle that outlives the call; the graph never runs backward);
+    # the list keeps every saved tensor alive until counted, so no storage's
+    # address is reused by another
+    with torch.autograd.graph.saved_tensors_hooks(held.append, lambda _: None):
+        T._seq_layer(cfg, "naive", x, lp)
+    sizes = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in held}
+    held.clear()
+    return sum(n for ptr, n in sizes.items() if ptr not in weights)
+
+
+def phase_lm_fl_remat(torch):
+    """Path 9's ``lm_fl_remat``: ``cfg.remat`` under the vmapped executor.
+    Yi-6B at its published width (bf16, weights from a seed), 4 layers, as
+    the FL global model: 8 devices, k=4, l_ep=1, local batch 8, 512-token
+    sequences.  One ``fedavg`` round with ``remat=True`` and one with
+    ``remat=False`` from the same init, in turns (on, off, off, on): the
+    same cohort, every param leaf within LM_FL_ULPS bf16 ulps, a finite test
+    loss, the layer checkpoint applied ``n_layers`` times a grad step with
+    remat and never without, and the remat round's own peak (the peak over
+    the memory held when it starts) below the plain round's by at least
+    half the activations predicted from the shapes: one layer's saved
+    tensors (:func:`layer_saved_bytes`) x (L - 1) layers x k clients."""
+    import dataclasses
+
+    from repro_torch.configs import get_model_config
+    from repro_torch.fl import FLConfig, FLServer, LMTask, build_policy
+    from repro_torch.models import transformer as T
+
+    c = LM_FL_REMAT
+    base = dataclasses.replace(get_model_config(c["arch"]), n_layers=c["layers"])
+    data = lm_fl_data(base.vocab_size, c["n_devices"], c["seqs_per_device"], c["seq"],
+                      c["test_seqs"])
+    steps = c["l_ep"] * c["seqs_per_device"] // c["batch"]     # grad steps a round
+    per_layer = layer_saved_bytes(base, c["batch"], c["seq"])
+    predicted = per_layer * (base.n_layers - 1) * c["k"]
+    reset_counts()                                # every count to 0
+    runs, kept, init = {True: [], False: []}, {}, None
+    for remat in (True, False, False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        fl = FLConfig(n_devices=c["n_devices"], k_select=c["k"], rounds=1, l_ep=c["l_ep"],
+                      local_batch=c["batch"], lr=c["lr"], seed=0, executor="vmapped")
+        srv = FLServer(fl, LMTask(cfg, seq_len=c["seq"]), data, device="cuda")
+        if init is None:
+            init = srv.global_params
+        srv.global_params = init
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ckpt = T._checkpoint_layer.applied
+        res = srv.run_round(build_policy("fedavg"))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        applied = T._checkpoint_layer.applied - ckpt
+        check_round(srv, res, c["k"])
+        require(len(res.selected) == c["k"], ("lm_fl_remat cohort", res.selected))
+        require(applied == (cfg.n_layers * steps if remat else 0),
+                ("layer checkpoints", remat, applied, steps))
+        runs[remat].append(dict(cohort=res.selected.tolist(), test_loss=res.test_loss,
+                                host_s=res.host_time_s, peak_memory_gb=peak / 1e9,
+                                round_peak_gb=(peak - held) / 1e9, layer_checkpoints=applied))
+        kept.setdefault(remat, srv.global_params)
+        del srv
+        torch.cuda.empty_cache()
+    cohorts = {tuple(r["cohort"]) for rs in runs.values() for r in rs}
+    require(len(cohorts) == 1, ("lm_fl_remat cohorts", runs))
+    diffs, worst = ulp_diffs(torch, kept[False], kept[True])
+    require(worst <= LM_FL_ULPS, ("remat params off", max(diffs), worst))
+    on_gb = max(r["round_peak_gb"] for r in runs[True])
+    off_gb = min(r["round_peak_gb"] for r in runs[False])
+    saved_gb = off_gb - on_gb
+    require(saved_gb * 1e9 >= predicted / 2,
+            ("remat saves too little", on_gb, off_gb, predicted / 1e9))
+    measured = measured_saved_bytes(torch, base, init, c["batch"], c["seq"])
+    counts = read_counts()                        # read just after
+    emit(phase="lm_fl_remat", model=base.name, layers=base.n_layers, params=base.param_count(),
+         executor="vmapped", policy="fedavg", steps_per_round=steps,
+         **{k: v for k, v in c.items() if k not in ("arch", "layers")},
+         saved_bytes_one_layer_predicted=per_layer,
+         saved_bytes_one_layer_measured=measured,
+         predicted_activation_gb=predicted / 1e9,
+         remat_on=runs[True], remat_off=runs[False],
+         round_peak_gb_on=on_gb, round_peak_gb_off=off_gb, saved_gb=saved_gb,
+         max_param_diff=max(diffs), max_diff_in_ulps=worst,
+         tolerance=f"remat on vs off: every leaf within {LM_FL_ULPS} bf16 ulps at its "
+                   "largest magnitude; the saving at least half the prediction")
+    emit(phase="main_launches", path="lm_fl_remat", launches=counts)
+    del kept, init
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_cpu_agreement_lm_fl(torch):
@@ -4505,6 +4663,7 @@ def run_phases(torch, card, only=()):
         with step("path9_lm_fl"):
             lm_fl_counts, _ = timed("yi", phase_lm_fl_path, torch)
             lm_fl_moe_counts = timed("olmoe", phase_lm_fl_moe, torch)
+            timed("remat", phase_lm_fl_remat, torch)
     if want("obs"):
         with step("obs"):
             phase_obs(torch, data)

@@ -21,9 +21,12 @@ Parameters are the reference's pytree as nested dicts of tensors:
 ``layers`` leaf is stacked over a leading ``L`` axis.  The layer loop is a
 Python loop over ``L`` that indexes those leaves (views, no copies) in
 place of ``lax.scan``.  ``cfg.remat`` checkpoints each layer of
-:func:`forward`, the encoder's too (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint``), when autograd records it;
-:func:`prefill` and the decode steps never differentiate and ignore it.
+:func:`forward`, the encoder's too, as the reference's ``jax.checkpoint``
+does, whenever a backward will run: ``torch.utils.checkpoint`` under plain
+autograd, and under a ``torch.func`` transform (the vmapped FL executor's
+``vmap(grad(...))``) :class:`_LayerCheckpoint`, which saves the layer's
+inputs and recomputes the layer in its backward; :func:`prefill` and the
+decode steps never differentiate and ignore it.
 The decode state's caches are stacked the same way.
 :func:`decode_step` leaves its input state as it was and returns a new one,
 as the reference does; the serving loops, which own their state and never
@@ -36,7 +39,10 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch._C._functorch import TransformType, _unwrap_for_grad, _wrap_for_grad
+from torch._functorch.pyfunctorch import retrieve_current_functorch_interpreter
 from torch.distributed.tensor import DTensor
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
@@ -219,27 +225,102 @@ def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params,
     return x + y, cache, aux
 
 
-def _remat(cfg: ModelConfig, x: torch.Tensor, layers: Params) -> bool:
-    """Whether a stack checkpoints its layers: ``cfg.remat`` is set,
-    autograd records, and no ``torch.func`` transform is tracking the
-    stack's input or its weights.  Under ``torch.func`` (the vmapped FL
-    executor's ``vmap(grad(...))``) ``torch.utils.checkpoint`` raises, as
-    functorch does not support saved tensor hooks; there the layers run
-    plain, with the same numbers and more memory.  A transform is detected
-    by a functorch-wrapped tensor."""
+class _LayerCheckpoint(torch.autograd.Function):
+    """One layer under ``cfg.remat`` inside a ``torch.func`` transform, where
+    ``torch.utils.checkpoint`` cannot run (functorch does not support its
+    saved-tensor hooks).  ``forward(run, *flat)``: ``run`` rebuilds the
+    layer's arguments from the flat tensors (the layer input, its weights,
+    the encoder output) and returns ``(x, aux)``; the non-tensor arguments
+    (``cfg``, ``impl``, ``causal``) live in its closure.  Only the flat
+    inputs are saved; the backward reruns the layer through
+    ``torch.func.vjp`` (``torch.autograd.grad`` does not compose with the
+    transforms), and ``generate_vmap_rule`` lets ``vmap`` batch both passes.
+
+    ``torch.func.grad`` differentiates with ``create_graph=True``, so what a
+    backward computes is recorded at the transform's own level: a graph no
+    one reads (the level ends with that backward) that would keep every
+    recomputed layer's tensors alive until it ends.  Under a grad transform
+    the backward therefore runs one level lower, where an enclosing
+    transform still records what a higher derivative needs, and hands its
+    results back to its level as constants."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, *flat):
+        return run(*flat)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        top = torch._C._functorch.peek_interpreter_stack()
+        if top is None or top.key() != TransformType.Grad:
+            return (None, *_layer_vjp(ctx.run, saved, grads))
+        interp = retrieve_current_functorch_interpreter()
+        level = interp.level()
+        down = [None if t is None else _unwrap_for_grad(t, level) for t in (*saved, *grads)]
+        with interp.lower():
+            cot = _layer_vjp(ctx.run, down[:len(saved)], down[len(saved):])
+        return (None, *(_wrap_for_grad(t, level) for t in cot))
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(
+            "cfg.remat under a torch.func transform checkpoints each layer with a "
+            "reverse-mode rule only; forward-mode AD (torch.func.jvp, jacfwd, "
+            "hessian) needs cfg.remat=False")
+
+
+def _layer_vjp(run, saved, grads):
+    """The cotangents of ``run``'s inputs ``saved`` for its outputs'
+    ``grads``; an output nothing downstream used (a dense layer's aux) may
+    come back as None."""
+    out, vjp = torch.func.vjp(run, *saved)
+    return vjp(tuple(torch.zeros_like(o) if g is None else g for o, g in zip(out, grads)))
+
+
+def _checkpoint_layer(body, x: torch.Tensor, lp: Params,
+                      enc_out: Optional[torch.Tensor]):
+    """``body(x, lp, enc_out)`` through :class:`_LayerCheckpoint`.  Each
+    application adds one to ``_checkpoint_layer.applied``."""
+    leaves, spec = tree_flatten(lp)
+    n = len(leaves)
+
+    def run(h, *rest):
+        return body(h, tree_unflatten(list(rest[:n]), spec), rest[n] if rest[n:] else None)
+
+    _checkpoint_layer.applied += 1
+    return _LayerCheckpoint.apply(run, x, *leaves, *(() if enc_out is None else (enc_out,)))
+
+
+_checkpoint_layer.applied = 0
+
+
+def _remat(cfg: ModelConfig, x: torch.Tensor, layers: Params) -> Optional[str]:
+    """How a stack checkpoints its layers: ``None`` (run plain) when
+    ``cfg.remat`` is off or autograd records nothing; ``"func"``
+    (:class:`_LayerCheckpoint`) when a ``torch.func`` transform tracks the
+    stack's input or its weights, which a functorch-wrapped tensor shows;
+    else ``"autograd"`` (``torch.utils.checkpoint``)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return None
     wrapped = torch._C._functorch.is_functorch_wrapped_tensor
-    return (cfg.remat and torch.is_grad_enabled() and not wrapped(x)
-            and not wrapped(layers["norm1"]["scale"]))
+    return "func" if wrapped(x) or wrapped(layers["norm1"]["scale"]) else "autograd"
 
 
 def _run_stack(cfg: ModelConfig, impl: str, causal: bool, x: torch.Tensor,
                layers: Params, n: int, enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n`` stacked layers over a full sequence: (x, the layers' aux summed
-    in fp32).  Each layer is checkpointed where :func:`_remat` says, its aux
-    with it."""
+    in fp32).  Each layer is checkpointed by the route :func:`_remat`
+    picks, its aux with it."""
     aux = _zero_aux(x)
-    remat = _remat(cfg, x, layers)
+    route = _remat(cfg, x, layers)
 
     def body(h, lp, eo):
         out, _, a = _seq_layer(cfg, impl, h, lp, causal, eo)
@@ -247,8 +328,10 @@ def _run_stack(cfg: ModelConfig, impl: str, causal: bool, x: torch.Tensor,
 
     for i in range(n):
         lp = layer_params(layers, i)
-        if remat:
+        if route == "autograd":
             x, a = checkpoint(body, x, lp, enc_out, use_reentrant=False)
+        elif route == "func":
+            x, a = _checkpoint_layer(body, x, lp, enc_out)
         else:
             x, a = body(x, lp, enc_out)
         aux = aux + a

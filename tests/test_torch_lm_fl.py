@@ -5,10 +5,14 @@ yi-6b smoke, fp32, sequences of 16 tokens, 8 devices, k=2, one local epoch)
 runs in both packages on the same numpy token stream.  The port starts from
 the reference's init (``params_from_numpy``), so the round must give the same
 cohort exactly and the same global params within 1e-5, under the sequential
-and the vmapped executor, and once under FedRank with the reference's Q-net.
+and the vmapped executor, and once under FedRank with the reference's Q-net;
+with ``remat=True`` on both sides the vmapped round of the yi-6b,
+hymba-1.5b, rwkv6-3b and olmoe-1b-7b smoke models too.
 The task's own pieces (the per-token mask, loss, accuracy, cost model) are
 held to the reference on one batch.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ import repro_torch.fl as tfl
 from repro_torch.configs import get_model_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.fl._tree import tree_leaves
+from repro_torch.models import transformer as T
 
 TOL = 1e-5
 SEQ = 16
@@ -62,8 +67,9 @@ def _lm_data(vocab):
     return train, test, parts
 
 
-def _servers(executor="sequential", arch="yi-6b", **kw):
-    jcfg, tcfg = jget_config(arch, smoke=True), get_model_config(arch, smoke=True)
+def _servers(executor="sequential", arch="yi-6b", remat=False, **kw):
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True), remat=remat)
+    tcfg = dataclasses.replace(get_model_config(arch, smoke=True), remat=remat)
     train, test, parts = _lm_data(jcfg.vocab_size)
     fl_kw = dict(n_devices=8, k_select=2, rounds=1, l_ep=1, lr=0.3, seed=0, **kw)
     jsrv = jfl.FLServer(jfl.FLConfig(executor=executor, **fl_kw),
@@ -86,11 +92,20 @@ def _assert_round_matches(jr, tr):
     np.testing.assert_allclose(tr.acc, jr.acc, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("executor", ["sequential", "vmapped"])
-def test_lm_fl_round_equals_reference(executor):
-    jsrv, tsrv = _servers(executor)
+@pytest.mark.parametrize("executor,arch,remat", [
+    pytest.param("sequential", "yi-6b", False, id="sequential"),
+    pytest.param("vmapped", "yi-6b", False, id="vmapped"),
+    *(pytest.param("vmapped", arch, True, id=f"vmapped-remat-{arch}")
+      for arch in ("yi-6b", "hymba-1.5b", "rwkv6-3b", "olmoe-1b-7b")),
+])
+def test_lm_fl_round_equals_reference(executor, arch, remat):
+    """``remat=True`` on both sides: the reference's ``jax.checkpoint``
+    under ``jax.vmap``, the port's layer checkpoint under ``torch.func``."""
+    jsrv, tsrv = _servers(executor, arch, remat)
     jr, = jsrv.run(jcore.RandomPolicy())
+    applied = T._checkpoint_layer.applied
     tr, = tsrv.run(tfl.build_policy("fedavg"))
+    assert (T._checkpoint_layer.applied > applied) == remat
     _assert_round_matches(jr, tr)
     assert tr.executor == executor
     _assert_tree_close(jsrv.global_params, tsrv.global_params)

@@ -15,8 +15,9 @@ Tolerances:
 * routes and remat in the port alone: ``blocked`` against ``naive`` within
   1e-5 (as above); remat on against off exactly equal (the same
   operations, recomputed);
-* the vmapped FL round with ``remat=True`` against the sequential one:
-  the same cohort, params within 1e-5;
+* the vmapped FL round with ``remat=True`` against the sequential one,
+  each checkpointing every layer of every grad step: the same cohort,
+  params within 1e-5;
 * ``lm_batches``: exactly equal ints.
 """
 import dataclasses
@@ -201,24 +202,31 @@ def _lm_fl_server(cfg, executor):
 
 
 def test_vmapped_lm_round_with_remat_equals_the_sequential_one(monkeypatch):
-    """Under ``torch.func`` (the vmapped executor) remat is skipped, since
-    ``torch.utils.checkpoint`` raises there; the sequential executor's
-    ``torch.autograd.grad`` checkpoints each layer."""
+    """Both executors rematerialise: the sequential one's
+    ``torch.autograd.grad`` through ``torch.utils.checkpoint``, the vmapped
+    one's ``vmap(grad(...))`` through the layer checkpoint that composes with
+    ``torch.func``; each applies its checkpoint once a layer per grad step
+    (one stack a step)."""
     cfg = dataclasses.replace(get_model_config("yi-6b", smoke=True), remat=True)
-    calls = []
-    real = T.checkpoint
+    calls, routes = [], []
+    real, real_remat = T.checkpoint, T._remat
     monkeypatch.setattr(T, "checkpoint", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setattr(T, "_remat", lambda *a: routes.append(real_remat(*a)) or routes[-1])
     runs, init = {}, None
     for executor in ("sequential", "vmapped"):
         srv = _lm_fl_server(cfg, executor)
         if init is None:
             init = srv.global_params
         srv.global_params = init
-        n0 = len(calls)
+        routes.clear()
+        n0, applied = len(calls), T._checkpoint_layer.applied
         res = srv.run_round(build_policy("fedavg"))
-        runs[executor] = (res, srv.global_params, len(calls) - n0)
-    (rs, ps, ns), (rv, pv, nv) = runs["sequential"], runs["vmapped"]
-    assert ns > 0 and nv == 0
+        runs[executor] = (res, srv.global_params, len(calls) - n0,
+                          T._checkpoint_layer.applied - applied,
+                          routes.count("autograd"), routes.count("func"))
+    (rs, ps, ns, fs, ss, _), (rv, pv, nv, fv, sv, steps) = runs["sequential"], runs["vmapped"]
+    assert ss > 0 and ns == cfg.n_layers * ss and fs == 0
+    assert steps > 0 and fv == cfg.n_layers * steps and nv == sv == 0
     np.testing.assert_array_equal(rs.selected, rv.selected)
     assert np.isfinite(rv.test_loss)
     for a, b in zip(tree_leaves(ps), tree_leaves(pv)):
