@@ -1,0 +1,8 @@
+import os
+import sys
+
+# the port and the harness importable without an install
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+for _p in (os.path.join(_ROOT, "src"), _ROOT):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
