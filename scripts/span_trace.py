@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where a benchmark cell's device time and idle time fall among the port's
+spans, from one profiled window.
+
+    python3 scripts/span_trace.py --workload yi6b-fl-fedrank --seed 12345 \
+        [--rounds 3] [--out FILE]
+
+Builds the cell's server and policy as ``perfbench`` does, drives its
+checked rounds as warm-up, then runs ``--rounds`` rounds with an in-memory
+``RunRecorder`` under ``torch.profiler``, so every span is also a profiler
+range.  From the trace it prints one JSON line with:
+
+* ``idle_by_span``: the idle time between device operations, split over its
+  whole length by the innermost span open on the host at each instant (a
+  path such as ``observe/td_steps``), largest first;
+* ``top_gaps``: the longest gaps, each with the span open where it began
+  (the benchmark's label) and its time by innermost span;
+* ``kernels_by_span``: device operation time by the innermost span open when
+  the host op that launched it began (kernels the autograd engine's thread
+  launches during ``grad`` count there);
+* ``device_s_by_span``: the recorder's own ``device_s`` summed by path over
+  the same rounds, to hold against ``kernels_by_span``;
+* the card (name, power limit).
+
+Needs a CUDA device; ``--device cpu --smoke`` runs the cell at the CPU
+tests' size (no device operations, so only the spans are read).
+"""
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+
+from observe_cost import card, cell_args, emit, warm_cell
+
+
+def innermost(ranges, t):
+    """The path of the ranges open at ``t`` (outermost first), or
+    "outside spans"."""
+    open_ = [r for r in ranges if r[0] <= t < r[1]]
+    if not open_:
+        return "outside spans"
+    open_.sort(key=lambda r: (r[0], -r[1]))
+    return "/".join(r[2] for r in open_)
+
+
+def split_interval(ranges, a, b):
+    """{path: seconds} of [a, b) by the innermost range open at each instant."""
+    cuts = sorted({a, b} | {x for r in ranges for x in r[:2] if a < x < b})
+    out = defaultdict(float)
+    for lo, hi in zip(cuts, cuts[1:]):
+        out[innermost(ranges, lo)] += (hi - lo) * 1e-9
+    return dict(out)
+
+
+def analyse(events) -> dict:
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    cpu = torch.autograd.DeviceType.CPU
+    ranges, ops, kernels = [], {}, []
+    for e in events:
+        if e.device_type() == cpu and e.is_user_annotation():
+            ranges.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.device_type() == cpu and e.linked_correlation_id() == 0:
+            ops[e.correlation_id()] = e.start_ns()        # a host op, not a runtime call
+        elif e.device_type() == cuda and not e.is_user_annotation():
+            kernels.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                            e.linked_correlation_id()))
+    busy = []
+    for a, b, _ in sorted(kernels):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    idle = defaultdict(float)
+    gaps = []
+    for (_, b), (a2, _) in zip(busy, busy[1:]):
+        parts = split_interval(ranges, b, a2)
+        for k, v in parts.items():
+            idle[k] += v
+        gaps.append({"s": (a2 - b) * 1e-9, "label": innermost(ranges, b).rsplit("/", 1)[-1],
+                     "by_span": dict(sorted(parts.items(), key=lambda kv: -kv[1])[:4])})
+    gaps.sort(key=lambda g: -g["s"])
+    by_span = defaultdict(float)
+    unlinked = 0.0
+    for a, b, corr in kernels:
+        t = ops.get(corr)
+        if t is None:
+            unlinked += (b - a) * 1e-9
+            continue
+        by_span[innermost(ranges, t)] += (b - a) * 1e-9
+    return {"busy_s": sum(b - a for a, b in busy) * 1e-9,
+            "idle_s": sum(idle.values()),
+            "idle_by_span": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
+            "top_gaps": gaps[:12],
+            "kernels_by_span": dict(sorted(by_span.items(), key=lambda kv: -kv[1])),
+            "kernels_unlinked_s": unlinked}
+
+
+def main(argv=None) -> int:
+    ap = cell_args(__doc__)
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
+    built = warm_cell(args)
+    if built is None:
+        print("span_trace: no CUDA device", file=sys.stderr)
+        return 3
+    srv, policy, sync = built
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import RunRecorder, clear_profiler, set_profiler
+
+    srv.obs = RunRecorder()
+    set_profiler(srv.obs)
+    srv.run_round(policy)                         # the recorder's first round, unprofiled
+    srv.obs.records.clear()
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if args.device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.rounds):
+            srv.run_round(policy)
+        sync()
+        window = time.perf_counter() - t0
+    clear_profiler()
+    out = analyse(prof.profiler.kineto_results.events())
+    dev_s = defaultdict(float)
+    wall = defaultdict(float)
+    for r in srv.obs.records:
+        for s in r.get("spans", []):
+            dev_s[s["span"]] += s.get("device_s", 0.0)
+            wall[s["span"]] += s["wall_s"]
+        for k, v in r.get("ops", {}).items():
+            wall["op:" + k] += v["wall_s"]
+    out.update(workload=args.workload, seed=args.seed, rounds=args.rounds, window_s=window,
+               device_s_by_span=dict(sorted(dev_s.items(), key=lambda kv: -kv[1])),
+               wall_s_by_span=dict(sorted(wall.items(), key=lambda kv: -kv[1])),
+               card=card())
+    emit(out, args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

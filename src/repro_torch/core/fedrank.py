@@ -29,6 +29,7 @@ from repro_torch.core.features import get_feature_set
 from repro_torch.core.qnet import hard_update, init_qnet
 from repro_torch.fl.server import RoundContext, RoundResult
 from repro_torch.kernels.select_topk.ops import select_topk
+from repro_torch.obs.profiling import span
 
 
 class FedRankPolicy:
@@ -102,8 +103,9 @@ class FedRankPolicy:
         avail = ctx.available_ids()
         m = min(len(avail), MAX_COHORT,
                 max(ctx.k, int(round(ctx.k * self.probe_factor))))
-        book = self.fs.bookkeeping_states(ctx)
-        feats = self.fs.featurize(book)
+        with span("featurize"):
+            book = self.fs.bookkeeping_states(ctx)
+            feats = self.fs.featurize(book)
         n_explore = max(1, m // 5)
         # fused score -> top-K over the whole fleet: offline devices are
         # masked and the over-participation decay streams in as the bias
@@ -166,15 +168,16 @@ class FedRankPolicy:
         if not self.online or len(self.replay) < max(2, self.train_batch // 2):
             return
         step_losses, step_rl, step_rank = [], [], []
-        for _ in range(self.train_steps_per_round):
-            batch = batch_transitions(self.replay.sample(self.train_batch),
-                                      self.device)
-            (self.q, self._opt_m, self._opt_v, self._opt_t, loss, aux
-             ) = self._train_step(self.q, self.q_target, self._opt_m,
-                                  self._opt_v, self._opt_t, batch)
-            step_losses.append(loss)
-            step_rl.append(aux["l_rl"])
-            step_rank.append(aux["l_rank"])
+        with span("td_steps"):
+            for _ in range(self.train_steps_per_round):
+                batch = batch_transitions(self.replay.sample(self.train_batch),
+                                          self.device)
+                (self.q, self._opt_m, self._opt_v, self._opt_t, loss, aux
+                 ) = self._train_step(self.q, self.q_target, self._opt_m,
+                                      self._opt_v, self._opt_t, batch)
+                step_losses.append(loss)
+                step_rl.append(aux["l_rl"])
+                step_rank.append(aux["l_rank"])
         # one metrics entry per round: the MEAN over this round's train steps
         # (one device->host copy for all of them)
         means = torch.stack([torch.stack(step_losses), torch.stack(step_rl),

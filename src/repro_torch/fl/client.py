@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.fl._tree import tree_device, tree_iter, tree_leaves, tree_map, tree_unflatten
+from repro_torch.obs.profiling import span
 
 Params = Dict[str, torch.Tensor]
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -207,8 +208,12 @@ def make_parallel_local_train(task, *, batch_size: int, n_batches: int,
             losses = []
             for b in range(n_batches):
                 sl = slice(b * batch_size, (b + 1) * batch_size)
-                grads, loss = step(params, p_init, xe[:, sl], ye[:, sl], me[:, sl])
-                params = tree_map(_sgd_stacked(lr), params, grads)
+                # host spans outside every transform: the vmapped forward,
+                # recompute and backward, then the update
+                with span("grad"):
+                    grads, loss = step(params, p_init, xe[:, sl], ye[:, sl], me[:, sl])
+                with span("sgd_update"):
+                    params = tree_map(_sgd_stacked(lr), params, grads)
                 losses.append(loss)
             ep_losses.append(torch.stack(losses, dim=1).mean(dim=1))
         if not ep_losses:

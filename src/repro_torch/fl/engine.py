@@ -36,7 +36,7 @@ from repro_torch.fl.client import (
     local_train,
     make_parallel_local_train,
 )
-from repro_torch.obs.profiling import timed_call
+from repro_torch.obs.profiling import span, timed_call
 
 Params = Any
 
@@ -199,44 +199,44 @@ class VmappedExecutor:
         _, bs, nb = _bucket_geometry(cap, batch_size)
         take = nb * bs
         device = tree_device(global_params)
-        xs, ys, masks, perms = [], [], [], []
-        for req in reqs:
-            xpad, ypad, mask = _pad_bucket(torch.as_tensor(req.x, device=device),
-                                           torch.as_tensor(req.y, device=device))
-            xs.append(xpad)
-            ys.append(ypad)
-            masks.append(mask)
-            rng = np.random.default_rng(req.seed)
-            perms.append(np.stack([rng.permutation(cap)[:take]
-                                   for _ in range(epochs)]))
         stacked_init = any(req.init_params is not None for req in reqs)
-        inits = [req.init_params if req.init_params is not None
-                 else global_params for req in reqs] if stacked_init else None
-        lo, hi = 0, len(reqs)
-        if self.mesh is not None:
-            # pad the client axis to a multiple of the data axis (duplicates
-            # of the last client, results dropped); this rank takes its slice
-            n, r = self._data_axis()
-            for lst in (xs, ys, masks, perms) + ((inits,) if stacked_init else ()):
-                lst.extend([lst[-1]] * ((-len(reqs)) % n))
-            per = len(xs) // n
-            lo, hi = r * per, (r + 1) * per
-            xs, ys, masks, perms = xs[lo:hi], ys[lo:hi], masks[lo:hi], perms[lo:hi]
-            inits = inits[lo:hi] if stacked_init else None
-        if stacked_init:
-            p0 = tree_stack(inits)
-        else:
-            # shared start (probe stage, plain rounds): the one dict is
-            # broadcast inside the step, no K-fold copy
-            p0 = global_params
+        with span("inputs"):
+            xs, ys, masks, perms = [], [], [], []
+            for req in reqs:
+                xpad, ypad, mask = _pad_bucket(torch.as_tensor(req.x, device=device),
+                                               torch.as_tensor(req.y, device=device))
+                xs.append(xpad)
+                ys.append(ypad)
+                masks.append(mask)
+                rng = np.random.default_rng(req.seed)
+                perms.append(np.stack([rng.permutation(cap)[:take]
+                                       for _ in range(epochs)]))
+            inits = [req.init_params if req.init_params is not None
+                     else global_params for req in reqs] if stacked_init else None
+            if self.mesh is not None:
+                # pad the client axis to a multiple of the data axis (duplicates
+                # of the last client, results dropped); this rank takes its slice
+                n, r = self._data_axis()
+                for lst in (xs, ys, masks, perms) + ((inits,) if stacked_init else ()):
+                    lst.extend([lst[-1]] * ((-len(reqs)) % n))
+                per = len(xs) // n
+                lo, hi = r * per, (r + 1) * per
+                xs, ys, masks, perms = xs[lo:hi], ys[lo:hi], masks[lo:hi], perms[lo:hi]
+                inits = inits[lo:hi] if stacked_init else None
+            if stacked_init:
+                p0 = tree_stack(inits)
+            else:
+                # shared start (probe stage, plain rounds): the one dict is
+                # broadcast inside the step, no K-fold copy
+                p0 = global_params
+            args = (p0, torch.stack(xs), torch.stack(ys), torch.stack(masks), float(lr),
+                    torch.as_tensor(np.stack(perms), device=device))
         step = _bucket_step(task, bs, nb, epochs, float(prox_mu), stacked_init)
         # timed_call is a passthrough unless a profiler is active
         # (repro_torch.obs.profiling); then the bucket step is fenced and
         # charged per (cohort size, epochs) geometry
         stacked, ep_losses = timed_call(
-            f"vmapped.bucket_step[k={len(reqs)},ep={epochs}]",
-            step, p0, torch.stack(xs), torch.stack(ys), torch.stack(masks),
-            float(lr), torch.as_tensor(np.stack(perms), device=device))
+            f"vmapped.bucket_step[k={len(reqs)},ep={epochs}]", step, *args)
         if self.mesh is not None:
             stacked, ep_losses = self._gather((stacked, ep_losses))
         # one device->host copy of the bucket's losses; each client's params

@@ -463,9 +463,10 @@ class FLServer:
         cfg = self.cfg
         obs = self.obs
         t_host0 = time.perf_counter()
-        self.pool.advance_round()
-        ctx = self._ctx()
-        self.loss_age += 1
+        with obs.span("context"):
+            self.pool.advance_round()
+            ctx = self._ctx()
+            self.loss_age += 1
 
         with obs.span("plan"):
             plan = build_round_plan(policy, ctx, cfg.l_ep)
@@ -477,10 +478,11 @@ class FLServer:
         if plan.has_probe:
             with obs.span("probe"):
                 self._check_available(ctx, probe_ids, policy, "probed")
-                reqs = build_requests(probe_ids, self._client_data,
-                                      plan.probe_epochs, seed=cfg.seed,
-                                      round_idx=ctx.round,
-                                      stride=PROBE_SEED_STRIDE)
+                with obs.span("requests"):
+                    reqs = build_requests(probe_ids, self._client_data,
+                                          plan.probe_epochs, seed=cfg.seed,
+                                          round_idx=ctx.round,
+                                          stride=PROBE_SEED_STRIDE)
                 probed = self._execute(reqs)
                 probe_params = probed.params
                 probe_losses = np.array([probed.losses[int(i)][-1]
@@ -513,11 +515,12 @@ class FLServer:
         # ---- completion stage (survivors only) -----------------------
         with obs.span("complete"):
             if plan.completion_epochs > 0 and len(survivors):
-                reqs = build_requests(survivors, self._client_data,
-                                      plan.completion_epochs, seed=cfg.seed,
-                                      round_idx=ctx.round,
-                                      stride=COMPLETE_SEED_STRIDE,
-                                      init_params=probe_params)
+                with obs.span("requests"):
+                    reqs = build_requests(survivors, self._client_data,
+                                          plan.completion_epochs, seed=cfg.seed,
+                                          round_idx=ctx.round,
+                                          stride=COMPLETE_SEED_STRIDE,
+                                          init_params=probe_params)
                 completed = self._execute(reqs)
                 client_results: Dict[int, Params] = dict(completed.params)
                 # losses from survivors only: a lost device never uploaded

@@ -3,15 +3,15 @@
 The opt-in instrumentation layer for both round engines (``FLConfig
 .observe``).  Pieces:
 
-* :mod:`repro_torch.obs.recorder` — span tracing (host wall + virtual clock) and
-  the JSONL run record; :data:`NULL_RECORDER` is the zero-overhead,
-  RNG-free disabled default.
+* :mod:`repro_torch.obs.recorder` — span tracing (host wall, CUDA-event
+  device time, virtual clock, profiler ranges) and the JSONL run record;
+  :data:`NULL_RECORDER` is the zero-overhead, RNG-free disabled default.
 * :mod:`repro_torch.obs.metrics` — counters / gauges / histograms flushed per
   round (devices online, buffer fill, staleness distribution, per-tier
   lag, adversaries merged, events per window).
 * :mod:`repro_torch.obs.profiling` — ``torch.cuda.synchronize``-fenced
-  timing around executor and kernel calls, plus the ``torch.profiler``
-  trace gate.
+  timing around executor and kernel calls, spans of the active recorder
+  where none is in hand, plus the ``torch.profiler`` trace gate.
 * :mod:`repro_torch.obs.manifest` — the reproducibility header (config digest,
   scenario, seed, platform, package versions).
 * :mod:`repro_torch.obs.log` — the structured logger behind the engines' round

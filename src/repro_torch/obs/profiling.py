@@ -10,7 +10,9 @@ module global: a server whose recorder is enabled registers it with
 profiler (the default) ``timed_call`` is a plain passthrough — one ``is
 None`` check per call, no timing, no device sync — so un-observed runs pay
 nothing and queued device work keeps overlapping host work (the fence only
-exists while someone is measuring).
+exists while someone is measuring).  :func:`span` takes the same route for
+spans: code with no recorder in hand (the executor, the client loop, the
+policy) opens a nested span of the active recorder, or the shared no-op span.
 
 :func:`trace_gate` wraps a block in ``torch.profiler.profile`` and writes a
 Chrome trace when a trace directory is supplied (argument or the
@@ -25,6 +27,8 @@ from contextlib import contextmanager
 from typing import Optional
 
 import torch
+
+from repro_torch.obs.recorder import _NULL_SPAN
 
 _ACTIVE = None
 
@@ -46,6 +50,15 @@ def clear_profiler(recorder=None) -> None:
 
 def active_profiler():
     return _ACTIVE
+
+
+def span(name: str):
+    """A span of the active recorder, nested in whatever span is open there,
+    or the shared no-op span when none is active."""
+    prof = _ACTIVE
+    if prof is None:
+        return _NULL_SPAN
+    return prof.span(name)
 
 
 def _cuda_device(out) -> Optional[torch.device]:

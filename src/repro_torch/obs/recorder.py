@@ -18,10 +18,20 @@ Two implementations of one small protocol:
   list is always kept, so tests and callers can introspect without a
   filesystem round-trip.
 
-Span records carry BOTH clocks: ``wall_s`` (host ``perf_counter`` delta)
-and, when a virtual clock was supplied, ``v0_s``/``v1_s`` (virtual time at
-enter/exit).  Nesting is recorded as a ``/``-joined path ("aggregate/
-evaluate"), in exit order (children before parents).
+Span records carry the host's clock (``t0_s``, ``perf_counter`` at entry,
+and ``wall_s``, the delta to exit), and when a virtual clock was supplied
+``v0_s``/``v1_s`` (virtual time at enter/exit).  Nesting is recorded as a
+``/``-joined path ("aggregate/evaluate"), in exit order (children before
+parents), so start, end and path give a span's parent and self time.
+
+With CUDA in use each span of a :class:`RunRecorder` also records a timing
+event on the current stream at entry and at exit, and ``flush_round``
+resolves them after one ``synchronize`` on the window's last event into
+``device_s``: the stream's time from the span's entry to its exit (its
+kernels plus any wait on the host inside it).  No span fences the card, so
+queued work still overlaps host work.  While ``torch.profiler`` runs, each
+span also opens a ``record_function`` range of its name, so the program's
+spans label the device trace.
 """
 from __future__ import annotations
 
@@ -29,6 +39,9 @@ import json
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+import torch
+from torch.profiler import record_function
 
 from repro_torch.obs.metrics import NULL_METRICS, MetricsRegistry
 
@@ -72,8 +85,18 @@ class NullRecorder:
 NULL_RECORDER = NullRecorder()
 
 
+def cuda_event():
+    """A timing event recorded on the current CUDA stream, or None where
+    CUDA is not in use (the default device-event source of a span)."""
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 class _Span:
-    __slots__ = ("rec", "name", "clock", "t0", "v0")
+    __slots__ = ("rec", "name", "clock", "t0", "v0", "ev0", "range")
 
     def __init__(self, rec: "RunRecorder", name: str,
                  clock: Optional[Callable[[], float]]):
@@ -83,6 +106,11 @@ class _Span:
 
     def __enter__(self):
         self.rec._stack.append(self.name)
+        self.range = None
+        if torch.autograd._profiler_enabled():
+            self.range = record_function(self.name)
+            self.range.__enter__()
+        self.ev0 = self.rec._device_event()
         self.v0 = self.clock() if self.clock is not None else None
         self.t0 = time.perf_counter()
         return self
@@ -90,13 +118,18 @@ class _Span:
     def __exit__(self, *exc):
         wall = time.perf_counter() - self.t0
         rec = self.rec
+        ev1 = rec._device_event() if self.ev0 is not None else None
         path = "/".join(rec._stack)
         rec._stack.pop()
-        entry: Dict[str, Any] = {"span": path, "wall_s": wall}
+        entry: Dict[str, Any] = {"span": path, "t0_s": self.t0, "wall_s": wall}
         if self.clock is not None:
             entry["v0_s"] = float(self.v0)
             entry["v1_s"] = float(self.clock())
+        if ev1 is not None:
+            rec._pending.append((entry, self.ev0, ev1))
         rec._spans.append(entry)
+        if self.range is not None:
+            self.range.__exit__(*exc)
         return False
 
 
@@ -114,13 +147,19 @@ class RunRecorder:
     enabled = True
 
     def __init__(self, out_dir: Optional[str] = None,
-                 manifest: Optional[dict] = None):
+                 manifest: Optional[dict] = None,
+                 device_event: Callable[[], Any] = cuda_event):
+        """``device_event`` makes a span's entry and exit marks: a recorded
+        event with ``synchronize()`` and ``elapsed_time(end)`` (ms), or None
+        for no device time."""
         self.out_dir = out_dir
         self.manifest = manifest or {}
         self.metrics = MetricsRegistry()
         self.records: List[dict] = []
         self._spans: List[dict] = []
         self._stack: List[str] = []
+        self._device_event = device_event
+        self._pending: List[tuple] = []     # (span entry, entry event, exit event)
         self._ops: Dict[str, List[float]] = {}
         self._path: Optional[str] = None
         self._fh = None
@@ -154,6 +193,7 @@ class RunRecorder:
     def flush_round(self, **fields) -> None:
         """Close the current window: one round record with every span, op
         aggregate and metrics snapshot accumulated since the last flush."""
+        self._resolve_device_times()
         record = {"type": "round", **fields,
                   "spans": self._spans,
                   "ops": {k: {"n": n, "wall_s": w}
@@ -162,6 +202,17 @@ class RunRecorder:
         self._spans = []
         self._ops = {}
         self._write(record)
+
+    def _resolve_device_times(self) -> None:
+        """``device_s`` of every span closed since the last flush: one wait
+        on the last exit event (recorded last on the stream), then each
+        pair's elapsed time."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        pending[-1][2].synchronize()
+        for entry, start, end in pending:
+            entry["device_s"] = 1e-3 * start.elapsed_time(end)
 
     def _write(self, record: dict) -> None:
         self.records.append(record)

@@ -11,9 +11,16 @@
 * The port's ``run.jsonl``, read with the reference's
   ``repro.obs.report.load_run``, passes the reference's ``check_run``
   unchanged.
+  The port's own spans (``PORT_ONLY_SPANS``: the round's context, request
+  building, the vmapped executor's inputs, gradient and SGD update, FedRank's
+  featurising and TD steps) are taken out by name before the comparison and
+  checked present on their own.
 * ``observe=None`` is the shared ``NULL_RECORDER``, and an observed run
   gives exactly the cohorts and params of an unobserved one.
-* The pieces: span nesting and both clocks, the metrics window, the
+* The pieces: span nesting and both clocks, device times resolved at the
+  flush from injected events, profiler ranges, ``profiling.span`` with and
+  without an active recorder, the leaf spans of a vmapped FedRank round,
+  the metrics window, the
   logger's threshold and ``REPRO_LOG_LEVEL`` fallback, ``make_recorder``,
   ``config_digest`` ignoring ``observe``, ``timed_call`` passing through with
   no profiler, ``trace_gate`` and the ``async-stall`` event.
@@ -39,8 +46,12 @@ from repro_torch.fl.async_engine import AsyncRoundEngine
 from repro_torch.obs.report import check_run, coverage, load_run, op_table, phase_table
 
 TOL = 1e-5
-# keys whose values vary between identical runs (host clocks)
-VOLATILE_KEYS = {"wall_s", "host_time_s", "host_s", "created_at"}
+# keys whose values vary between identical runs (host and device clocks)
+VOLATILE_KEYS = {"wall_s", "t0_s", "device_s", "host_time_s", "host_s", "created_at"}
+# leaf names of the spans that only the port records (the reference has no
+# span at these boundaries)
+PORT_ONLY_SPANS = {"context", "requests", "inputs", "grad", "sgd_update", "featurize",
+                   "td_steps"}
 # float fields that carry the model's quality: equal within fp32 rounding
 MODEL_KEYS = {"acc"}
 # the reference's backend routes under the port's names (on the CPU the
@@ -121,15 +132,25 @@ def _scrub(value):
     return value
 
 
+def _leaf(path):
+    return path.rsplit("/", 1)[-1]
+
+
 def _assert_records_match(jrec, trec):
+    """The records equal, the port-only spans taken out; returns the paths
+    of the port-only spans that were taken out."""
     ref = _scrub(json.loads(json.dumps(jrec.records, default=float)))
     got = _scrub(json.loads(json.dumps(trec.records, default=float)))
     assert len(got) == len(ref) > 0
+    port_only = set()
     for i, (r, g) in enumerate(zip(ref, got)):
         assert g.get("type") == r.get("type") and g.get("event") == r.get("event"), i
         if r.get("type") == "round":
+            port_only |= {s["span"] for s in g["spans"] if _leaf(s["span"]) in PORT_ONLY_SPANS}
+            g["spans"] = [s for s in g["spans"] if _leaf(s["span"]) not in PORT_ONLY_SPANS]
             assert [s["span"] for s in g["spans"]] == [s["span"] for s in r["spans"]], i
         _assert_same_value(r, g, f"record[{i}]")
+    return port_only
 
 
 def test_observed_sync_fedrank_records_equal_reference(fl_data):
@@ -142,10 +163,11 @@ def test_observed_sync_fedrank_records_equal_reference(fl_data):
         _feed(jsrv, tsrv, jpol, tpol)
         jr, tr = jsrv.run_round(jpol), tsrv.run_round(tpol)
         np.testing.assert_array_equal(tr.selected, jr.selected)
-    _assert_records_match(jrec, trec)
+    port_only = _assert_records_match(jrec, trec)
+    assert port_only == {"context", "plan/featurize", "probe/requests", "complete/requests"}
     rounds = [r for r in trec.records if r["type"] == "round"]
-    assert [s["span"] for s in rounds[0]["spans"]] == [
-        "plan", "probe", "select", "complete", "aggregate", "telemetry",
+    assert [s["span"] for s in rounds[0]["spans"] if "/" not in s["span"]] == [
+        "context", "plan", "probe", "select", "complete", "aggregate", "telemetry",
         "evaluate", "observe"]
     assert rounds[0]["ops"]["select_topk.plain"]["n"] == 2
     assert rounds[0]["ops"]["executor.sequential"]["n"] == 2
@@ -158,7 +180,11 @@ def test_observed_async_trace_records_equal_reference(fl_data, executor):
         async_concurrency=8, staleness="polynomial", executor=executor)
     jsrv.run(jcore.RandomPolicy())
     tsrv.run(tfl.build_policy("fedavg"))
-    _assert_records_match(jrec, trec)
+    port_only = _assert_records_match(jrec, trec)
+    # the async engine builds its own requests; the vmapped executor's
+    # spans nest under the stage that dispatched the wave
+    assert {_leaf(p) for p in port_only} == (
+        {"inputs", "grad", "sgd_update"} if executor == "vmapped" else set())
     rounds = [r for r in trec.records if r["type"] == "round"]
     spans = {s["span"] for r in rounds for s in r["spans"]}
     assert {"ready_check", "aggregate", "dispatch", "events",
@@ -178,7 +204,8 @@ def test_observed_hierarchical_records_equal_reference(fl_data, mode):
                                       k_select=6, async_concurrency=12)
     jsrv.run(jcore.RandomPolicy())
     tsrv.run(tfl.build_policy("fedavg"))
-    _assert_records_match(jrec, trec)
+    # the hierarchy's rounds run neither the server's nor FedRank's spans
+    assert _assert_records_match(jrec, trec) == set()
     gauges = {k for r in trec.records if r["type"] == "round"
               for k in r["metrics"]["gauges"]}
     assert any(k.startswith("tier_lag.") for k in gauges)
@@ -216,6 +243,8 @@ def test_port_jsonl_passes_the_reference_check(fl_data, tmp_path, scenario, mode
 
 
 @pytest.mark.parametrize("kw", [dict(scenario="high-churn", policy="fedrank"),
+                                dict(scenario="high-churn", policy="fedrank",
+                                     executor="vmapped"),
                                 dict(scenario="trace-synthetic-week", mode="async",
                                      async_concurrency=8, policy="fedavg"),
                                 dict(scenario="hierarchical", policy="fedrank",
@@ -257,6 +286,104 @@ def test_span_nesting_and_dual_clocks():
     assert (spans[1]["v0_s"], spans[1]["v1_s"]) == (10.0, 30.0)
     assert all(s["wall_s"] >= 0 for s in spans)
     assert tobs.NULL_RECORDER.span("x") is tobs.NULL_RECORDER.span("y")
+
+
+class _StubEvent:
+    """A device event on a made-up clock (seconds), for the CPU."""
+
+    def __init__(self, t, synced):
+        self.t, self.synced = t, synced
+
+    def synchronize(self):
+        self.synced.append(self.t)
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+def test_device_times_resolved_at_flush_from_injected_events():
+    ticks, synced = iter([1.0, 1.5, 3.0, 7.25]), []
+    rec = tobs.RunRecorder(device_event=lambda: _StubEvent(next(ticks), synced))
+    with rec.span("aggregate"):
+        with rec.span("evaluate"):
+            pass
+    inner, outer = rec._spans
+    assert "device_s" not in inner and "device_s" not in outer and synced == []
+    rec.flush_round(round=0, mode="sync", host_time_s=1.0)
+    # one wait, on the last exit event; each span its own pair
+    assert synced == [7.25]
+    assert inner["device_s"] == pytest.approx(1.5) and outer["device_s"] == pytest.approx(6.25)
+    rec.flush_round(round=1, mode="sync", host_time_s=1.0)
+    assert synced == [7.25] and rec.records[1]["spans"] == []
+
+
+def test_spans_carry_ordered_host_starts_and_no_device_time_on_the_cpu():
+    rec = tobs.RunRecorder()
+    with rec.span("probe"):
+        with rec.span("inputs"):
+            pass
+        with rec.span("grad"):
+            pass
+    rec.flush_round(round=0, mode="sync", host_time_s=1.0)
+    inputs, grad, probe = rec.records[0]["spans"]
+    assert [inputs["span"], grad["span"], probe["span"]] == ["probe/inputs", "probe/grad", "probe"]
+    assert probe["t0_s"] <= inputs["t0_s"] <= inputs["t0_s"] + inputs["wall_s"] <= grad["t0_s"]
+    assert grad["t0_s"] + grad["wall_s"] <= probe["t0_s"] + probe["wall_s"]
+    assert not any("device_s" in s for s in (inputs, grad, probe))
+
+
+def test_profiling_span_routes_to_the_active_recorder():
+    from repro_torch.obs import profiling
+
+    tobs.clear_profiler()
+    assert profiling.span("grad") is tobs.NULL_RECORDER.span("x")
+    rec = tobs.RunRecorder()
+    tobs.set_profiler(rec)
+    with rec.span("probe"):
+        with profiling.span("grad"):
+            pass
+    tobs.clear_profiler(rec)
+    assert [s["span"] for s in rec._spans] == ["probe/grad", "probe"]
+
+
+def test_span_opens_a_profiler_range_only_while_the_profiler_runs():
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = tobs.RunRecorder()
+    with rec.span("outside"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with rec.span("probe"):
+            with rec.span("sgd_update"):
+                torch.ones(8).sum()
+    ranges = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()]
+    assert "probe" in ranges and "sgd_update" in ranges and "outside" not in ranges
+    assert [s["span"] for s in rec._spans] == ["outside", "probe/sgd_update", "probe"]
+
+
+def test_observed_vmapped_fedrank_round_lists_the_leaf_spans(fl_data):
+    rec = tobs.RunRecorder()
+    srv = tfl.FLServer(tfl.FLConfig(n_devices=20, k_select=4, rounds=3, l_ep=2, lr=0.1,
+                                    seed=3, scenario="high-churn", executor="vmapped",
+                                    observe=rec),
+                       tfl.MLPTask(dim=32, hidden=32), _tdata(fl_data), device="cpu")
+    pol = tfl.build_policy("fedrank", k=4, seed=0, train_batch=4, train_steps_per_round=1,
+                           device="cpu")
+    srv.run(pol)
+    rounds = [r for r in rec.records if r["type"] == "round"]
+    # the third round is the first whose replay holds enough to train
+    assert pol.metrics["loss"] and len(pol.metrics["loss"]) == 1
+    spans = [s["span"] for s in rounds[2]["spans"]]
+    want = ["context", "plan/featurize", "probe/requests", "probe/inputs", "probe/grad",
+            "probe/sgd_update", "complete/requests", "complete/inputs", "complete/grad",
+            "complete/sgd_update", "observe/td_steps"]
+    assert [p for p in spans if _leaf(p) in PORT_ONLY_SPANS] == [
+        p for p in spans if p in set(want)]
+    assert set(want) <= set(spans)
+    got = iter(spans)
+    assert all(w in got for w in want), spans         # in this order
+    assert "observe/td_steps" not in [s["span"] for s in rounds[0]["spans"]]
 
 
 def test_metrics_snapshot_and_reset():
