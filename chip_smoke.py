@@ -5,7 +5,7 @@
 
 With no argument it runs every step below.  Given step names (``build``,
 ``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
-``mamba_rwkv6``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
+``mamba_rwkv6``, ``sgd_update``, ``cpu_vs_card``, ``full_width``, ``path1_sync`` to
 ``path5_async``, ``vmapped``, ``path8_hierarchy``, ``path6_lm``,
 ``path7_ssm``, ``path9_lm_fl``, ``obs``, ``path10_lm_train``,
 ``path11_zoo``, ``path12_mesh``) it builds
@@ -18,7 +18,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. device and build — refuses to run without CUDA, prints the card's name and
    power limit (``nvidia-smi``), builds the CUDA libraries from this checkout
    (``select_topk``, ``pairwise_rank``, ``fleet_state``, ``flash_attention``,
-   ``mamba`` and ``rwkv6``, one ``nvcc`` each, started together), prints
+   ``mamba``, ``rwkv6`` and ``sgd_update``, one ``nvcc`` each, started
+   together), prints
    ``ptxas``'s registers and spills (and fails if ``mamba``, ``rwkv6`` or
    ``select_topk`` spills), and the launch configuration of every
    ``mamba`` and ``rwkv6`` instantiation and of ``select_topk`` at each
@@ -69,7 +70,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    B*H in {3, 160}: the kernel's 4-byte copies), path 7's own shapes in the
    model's layout, views (RWKV6-3B's prefill: B=4, T=1024, 40 heads of 64,
    model and strong decay; a decode step; B=1 at T=8192, model and strong
-   decay) and a split-T composition;
+   decay) and a split-T composition; ``sgd_update`` against
+   ``fl/client.py::_sgd_leaf`` client by client, bit for bit, at the main
+   path's leaves (Yi-6B's embedding, 10 x 64000 x 4096 bf16; an OLMoE
+   expert leaf, 10 x 64 x 2048 x 1024; an fp32 MLP leaf), each broadcast
+   (client stride 0) and stacked, and at a ragged end, an unaligned start,
+   client strides of their own, fp16 and one client;
 3. kernel timings (CUDA events, warm-up, median of 25; ``select_topk``
    the median of 50 over two turns) beside the plain version's (in turns), the least time the card could take (the bound) and a one-call
    PyTorch yardstick: for ``select_topk`` none (and the op at the main
@@ -95,7 +101,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    microseconds a call of each (from the call to its return, the card idle
    before each call; medians of 400, in turns).  The bounds come from
    ``src/repro_torch/kernels/work.py``, the formulas the dry-run's counter
-   books;
+   books; ``sgd_update`` at the main path's leaves beside the plain version
+   (the executor's update before it), the bytes' bound and
+   ``torch.add(a, g, alpha=-lr)`` (timed only), and at least 80% of 3.35
+   TB/s at Yi's stacked embedding;
 4. the CPU and the card agree: one round of every policy at 50 devices picks
    the same cohorts, 5 imitation-pretraining steps from the same Q-net give
    the same Q-net, an asynchronous trace run schedules the same jobs, one
@@ -176,6 +185,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     one ``fedavg`` and one ``fedrank`` round (a fresh Q-net), each under the
     sequential and the vmapped executor (cohorts online, unique, at most k;
     a finite test loss; exactly 2 ``select_topk`` launches a FedRank round;
+    one ``sgd_update`` launch a leaf and step under the vmapped executor,
+    none under the sequential one;
     the vmapped round's cohort equal to the sequential one's and its bf16
     params within two bf16 ulps at each leaf's largest magnitude; host s a
     round and peak memory), then one FedRank round under
@@ -267,7 +278,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 17. a ``summary`` line (each step's status, host seconds, its phases'
     seconds, largest error and device idle shares; printed also when a step
     fails, before the error),
-    a ``kernels`` line (six entries, one per TPU kernel of the repo, each
+    a ``kernels`` line (seven entries, one per TPU kernel of the repo and
+    ``sgd_update``, each
     with its times and launches; ``select_topk`` adds its design and the op's
     time host included, ``pairwise_rank`` its loss-only route,
     ``flash_attention`` the route its main shape took; ``flash_attention``,
@@ -293,6 +305,8 @@ log1p(e) to a few ulps relative, so a small loss keeps its digits).  The plain v
 inputs: among 70,000 random cohorts some rows' pair terms nearly cancel,
 and an fp32 evaluation of either side cannot resolve 1e-5 of what is left.  ``fleet_state``:
 exactly equal (the kernel computes the plain version's count).
+``sgd_update``: the same bits as ``_sgd_leaf`` (the same two fp32 roundings
+and the same rounding back).
 ``flash_attention`` (inputs N(0, 1); the plain version in fp32 on the same
 inputs): fp32 inputs within 2e-5 (fp32 sums over up to 8192 keys in another
 order); bf16 inputs within 2^-7 * |ref| + 2e-5 per element (the output is
@@ -555,6 +569,7 @@ def _wrappers():
     from repro_torch.kernels.mamba.kernel import selective_scan_cuda
     from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
     from repro_torch.kernels.select_topk.kernel import select_topk_cuda
+    from repro_torch.kernels.sgd_update.kernel import sgd_update_cuda
 
     return {"select_topk": select_topk_cuda,
             "pairwise_rank_fused": pairwise_rank_fused_cuda,
@@ -562,7 +577,8 @@ def _wrappers():
             "fleet_state": segment_index_cuda,
             "flash_attention": flash_attention_cuda,
             "mamba": selective_scan_cuda,
-            "rwkv6": wkv6_cuda}
+            "rwkv6": wkv6_cuda,
+            "sgd_update": sgd_update_cuda}
 
 
 def reset_counts() -> None:
@@ -2324,6 +2340,119 @@ def phase_ssm_op_route(torch, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# sgd_update: the vmapped executor's update of a stacked leaf
+# ---------------------------------------------------------------------------
+
+SGD_LR = 0.1                 # the benchmark cells' client lr
+# (label, clients, a client's leaf shape, dtype name): the main path's leaves
+SGD_MAIN = (("yi_embed", 10, (64000, 4096), "bfloat16"),
+            ("olmoe_expert", 10, (1, 64, 2048, 1024), "bfloat16"),
+            ("mlp_fp32", 10, (32, 128), "float32"))
+
+
+def sgd_bytes(k, n, elt, broadcast):
+    """a read once, g read once, out written once."""
+    return elt * (n if broadcast else k * n) + 2 * elt * k * n
+
+
+def sgd_leaf_inputs(torch, k, shape, dtype, broadcast, seed, *, offset=0, pad=0):
+    """g (k, *shape) and a: one client's leaf expanded over k (broadcast) or
+    k leaves; ``offset`` elements into the storage (an unaligned start) and
+    ``pad`` elements between clients (a client stride of its own)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = math.prod(shape)
+
+    def draw(rows, scale):
+        flat = torch.randn(offset + rows * (n + pad), generator=gen, device="cuda") * scale
+        return flat.to(dtype)[offset:].view(rows, n + pad)[:, :n].view((rows,) + shape)
+    g = draw(k, 1e-2)
+    a = draw(1, 2e-2)[0].expand((k,) + shape) if broadcast else draw(k, 2e-2)
+    return a, g
+
+
+def sgd_equal(torch, got, a, g, lr):
+    """The kernel's leaf against ``fl/client.py::_sgd_leaf`` client by
+    client, bit for bit: the number of entries that differ."""
+    from repro_torch.fl.client import _sgd_leaf
+
+    step = _sgd_leaf(lr)
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
+    return sum(int((got[j].view(bits) != step(a[j], g[j]).view(bits)).sum())
+               for j in range(got.shape[0]))
+
+
+def phase_sgd_update_vs_plain(torch):
+    """``sgd_update_cuda`` against ``_sgd_leaf`` on the card, bit for bit: the
+    main path's leaves (Yi-6B's embedding, an OLMoE expert leaf, an fp32 MLP
+    leaf), broadcast and stacked, then the edges: a ragged end, an
+    unaligned start, client strides of their own, fp16, one client, client
+    counts off the unroll."""
+    from repro_torch.kernels.sgd_update.kernel import sgd_update_cuda
+
+    cases = [(label, k, shape, dt, broadcast, 0, 0)
+             for label, k, shape, dt in SGD_MAIN for broadcast in (True, False)]
+    cases += [("ragged", 3, (4099,), "bfloat16", b, 0, 0) for b in (True, False)]
+    cases += [("unaligned", 5, (1000,), "bfloat16", b, 1, 0) for b in (True, False)]
+    cases += [("client_stride", 6, (37, 64), "bfloat16", b, 0, 8) for b in (True, False)]
+    cases += [("fp16", 7, (129, 8), "float16", b, 0, 0) for b in (True, False)]
+    cases += [("one_client", 1, (4096, 11), "bfloat16", False, 0, 0),
+              ("k5_broadcast", 5, (3, 1000), "bfloat16", True, 0, 0),
+              ("k5_strided_fp32", 5, (77,), "float32", False, 3, 5)]
+    worst = 0
+    for i, (label, k, shape, dt, broadcast, offset, pad) in enumerate(cases):
+        a, g = sgd_leaf_inputs(torch, k, shape, getattr(torch, dt), broadcast, seed=i,
+                               offset=offset, pad=pad)
+        got = sgd_update_cuda(a, g, SGD_LR)
+        torch.cuda.synchronize()
+        diff = sgd_equal(torch, got, a, g, SGD_LR)
+        emit(phase="vs_plain", kernel="sgd_update", case=label, k=k, shape=list(shape),
+             dtype=dt, broadcast=broadcast, offset=offset, pad=pad,
+             a_stride0=a.stride(0), g_stride0=g.stride(0), entries_differing=diff)
+        require(got.is_contiguous() and diff == 0, (label, broadcast, diff))
+        worst = max(worst, diff)
+        del a, g, got
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_sgd_update_timings(torch, card):
+    """The kernel, the plain version (the executor's update before it: five
+    fp32 passes, client by client past 2^26 elements), the bound (bytes over
+    3.35 TB/s) and ``torch.add(a, g, alpha=-lr)``, one PyTorch call, as the
+    yardstick (timed only; the port never calls it) at the main path's
+    leaves, broadcast and stacked."""
+    from repro_torch.kernels.sgd_update.kernel import launch_config, sgd_update_cuda
+    from repro_torch.kernels.sgd_update.ref import sgd_update_ref
+
+    rows = {}
+    for label, k, shape, dt in SGD_MAIN:
+        dtype = getattr(torch, dt)
+        for broadcast in (True, False):
+            a, g = sgd_leaf_inputs(torch, k, shape, dtype, broadcast, seed=1)
+            n = math.prod(shape)
+            nbytes = sgd_bytes(k, n, a.element_size(), broadcast)
+            ms = cuda_ms(torch, lambda: sgd_update_cuda(a, g, SGD_LR))
+            plain_ms = cuda_ms(torch, lambda: sgd_update_ref(a, g, SGD_LR), reps=5, warmup=1)
+            library_ms = cuda_ms(torch, lambda: torch.add(a, g, alpha=-SGD_LR), reps=5,
+                                 warmup=1)
+            key = f"{label}_{'broadcast' if broadcast else 'stacked'}"
+            rows[key] = dict(k=k, shape=list(shape), dtype=dt, broadcast=broadcast,
+                             bytes=nbytes, ms=ms, plain_ms=plain_ms,
+                             bound_ms=1e3 * nbytes / H100_BYTES_PER_S, bound_by="bytes",
+                             library_ms=library_ms,
+                             tb_per_s=nbytes / ms / 1e9,
+                             share_of_peak=nbytes / ms / 1e9 / (H100_BYTES_PER_S / 1e12),
+                             launch=launch_config(dtype, broadcast))
+            emit(phase="timing", kernel="sgd_update", case=key, card=card, **rows[key])
+            del a, g
+            torch.cuda.empty_cache()
+    yi = rows["yi_embed_stacked"]
+    require(yi["share_of_peak"] >= 0.8,
+            ("sgd_update under 80% of 3.35 TB/s at Yi's embedding", yi["share_of_peak"]))
+    return rows
+
+
 def tree_to(tree, device):
     return {k: (tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -3020,6 +3149,7 @@ def phase_lm_fl_path(torch):
               "gradients of the 10-client probe cohort on one 80 GB card",
          **{k: v for k, v in c.items() if k not in ("arch", "layers")})
     reset_counts()                                # every count to 0
+    steps = c["l_ep"] * (c["seqs_per_device"] // c["batch"])   # one bucket
     runs, servers = {}, {}
     for name in ("fedavg", "fedrank"):
         results = {}
@@ -3028,6 +3158,7 @@ def phase_lm_fl_path(torch):
                           l_ep=c["l_ep"], local_batch=c["batch"], lr=c["lr"], seed=0,
                           executor=ex)
             srv = FLServer(fl, task, data, device="cuda")
+            sgd_launches = len(tree_leaves(srv.global_params)) * steps
             pol = (build_policy("fedrank", k=c["k"], seed=0) if name == "fedrank"
                    else build_policy("fedavg"))
             seen = checked_policy(pol, srv)
@@ -3041,6 +3172,10 @@ def phase_lm_fl_path(torch):
             require(len(seen) == 1 and math.isfinite(res.test_loss), (name, ex, res))
             want = 2 if name == "fedrank" else 0           # probe_set and select
             require(launched["select_topk"] == want, (name, ex, launched))
+            # one update launch a leaf and step of the one bucket (the
+            # sequential executor steps each client through _sgd_leaf)
+            want_sgd = sgd_launches if ex == "vmapped" else 0
+            require(launched["sgd_update"] == want_sgd, (name, ex, want_sgd, launched))
             require(all(l.dtype == torch.bfloat16 or l.dtype == torch.float32
                         for l in tree_leaves(srv.global_params)), "leaf dtypes")
             require(all(bool(torch.isfinite(l).all()) for l in tree_leaves(srv.global_params)),
@@ -3074,9 +3209,12 @@ def phase_lm_fl_path(torch):
     before = read_counts()
     prof = profile_summary(torch, lambda: srv.run_round(pol))
     launched = {k: n - before[k] for k, n in read_counts().items()}
-    require(launched["select_topk"] == 2, launched)
+    require(launched["select_topk"] == 2 and launched["sgd_update"] == sgd_launches,
+            (sgd_launches, launched))
     counts = read_counts()                        # read just after
     emit(phase="profile", path="lm_fl", policy="fedrank", executor="vmapped",
+         sgd_update_launches_per_round=sgd_launches, leaves=sgd_launches // steps,
+         steps=steps,
          host_s=srv.history[-1].host_time_s, launches=launched, **prof)
     emit(phase="main_launches", path="lm_fl", launches=counts)
     del servers, srv
@@ -4515,7 +4653,7 @@ def spill_bytes(log):
 
 
 STEPS = ("build", "select_topk", "pairwise_rank", "fleet_state", "flash_attention",
-         "mamba_rwkv6", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
+         "mamba_rwkv6", "sgd_update", "cpu_vs_card", "full_width", "path1_sync", "path2_il",
          "path3_baselines", "path4_trace", "path5_async", "vmapped",
          "path8_hierarchy", "path6_lm", "path7_ssm", "path9_lm_fl", "obs",
          "path10_lm_train", "path11_zoo", "path12_mesh")
@@ -4530,6 +4668,7 @@ def run_phases(torch, card, only=()):
     from repro_torch.kernels.pairwise_rank import kernel as pairwise_rank_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv6_kernel
     from repro_torch.kernels.select_topk import kernel as select_topk_kernel
+    from repro_torch.kernels.sgd_update import kernel as sgd_update_kernel
 
     def want(name):
         return not only or name in only
@@ -4543,7 +4682,7 @@ def run_phases(torch, card, only=()):
         torch.backends.cudnn.allow_tf32 = False
         libraries = [select_topk_kernel.LIBRARY, pairwise_rank_kernel.LIBRARY,
                      fleet_state_kernel.LIBRARY, flash_attention_kernel.LIBRARY,
-                     mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY]
+                     mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY, sgd_update_kernel.LIBRARY]
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
             built = list(pool.map(lambda lib: lib.build(), libraries))
@@ -4551,7 +4690,8 @@ def run_phases(torch, card, only=()):
         for lib, path in zip(libraries, built):
             emit(phase="build", kernel=lib.name, seconds=seconds,
                  library=str(path.relative_to(ROOT)), ptxas=ptxas_lines(lib.build_log))
-        for lib in (mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY, select_topk_kernel.LIBRARY):
+        for lib in (mamba_kernel.LIBRARY, rwkv6_kernel.LIBRARY, select_topk_kernel.LIBRARY,
+                    sgd_update_kernel.LIBRARY):
             spills = spill_bytes(lib.build_log)
             require(lib.build_log == "" or not any(spills),
                     f"{lib.name}: ptxas reports spills {spills}")
@@ -4570,6 +4710,12 @@ def run_phases(torch, card, only=()):
              configs=[dict(state=st, batch=b, inner=1600,
                            **mamba_kernel.launch_config(st, b, 1600))
                       for st, b in ((4, 4), (8, 4), (16, 1), (16, 4), (32, 4), (64, 4))])
+        sgd_configs = [dict(dtype=dt, broadcast=b,
+                            **sgd_update_kernel.launch_config(getattr(torch, dt), b))
+                       for dt in ("bfloat16", "float32", "float16") for b in (True, False)]
+        emit(phase="launch_config", kernel="sgd_update", configs=sgd_configs)
+        require(all(c["local_bytes"] == 0 and c["ctas_per_sm"] >= 1 for c in sgd_configs),
+                "sgd_update: local memory or no resident CTA")
 
     # ---- 2-3: kernels against their plain versions, timings -----------
     if want("select_topk"):
@@ -4601,6 +4747,10 @@ def run_phases(torch, card, only=()):
             wkv_err = timed("rwkv6_vs_plain", phase_wkv_vs_plain, torch)
             ssm_timings = timed("timings", phase_ssm_timings, torch, card)
             ssm_op = timed("op_route", phase_ssm_op_route, torch, card)
+    if want("sgd_update"):
+        with step("sgd_update"):
+            sgd_err = timed("vs_plain", phase_sgd_update_vs_plain, torch)
+            sgd_timings = timed("timings", phase_sgd_update_timings, torch, card)
 
     # ---- 4: the CPU and the card agree ----------------------------------
     if want("cpu_vs_card"):
@@ -4761,6 +4911,18 @@ def run_phases(torch, card, only=()):
              op_route=ssm_op["rwkv6_decode"],
              ms_back_to_back=ssm_timings["rwkv6_prefill"]["ms_back_to_back"],
              launch_config=ssm_timings["rwkv6_prefill"]["launch"]),
+        dict(kernel_entry("sgd_update", "src/repro_torch/csrc/sgd_update.cu",
+                          "none: the reference's client step, fused by XLA inside its "
+                          "lax.scan (src/repro/fl/client.py:157-159)",
+                          lm_fl_counts["sgd_update"], sgd_err, sgd_timings["yi_embed_stacked"],
+                          {k: sgd_timings["yi_embed_stacked"][k]
+                           for k in ("k", "shape", "dtype", "broadcast")}),
+             library_note="torch.add(a, g, alpha=-lr): one call, timed only",
+             ms_by_shape={k: r["ms"] for k, r in sgd_timings.items()},
+             share_of_peak_by_shape={k: r["share_of_peak"] for k, r in sgd_timings.items()},
+             launches_by_path={"path1_sync": sync_counts["sgd_update"],
+                               "path9_lm_fl_moe": lm_fl_moe_counts["sgd_update"]},
+             launch_config=sgd_timings["yi_embed_stacked"]["launch"]),
     ]
     # the DTensor route on the 1x1 mesh (path 12): the same kernels on the
     # local shards

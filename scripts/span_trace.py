@@ -17,9 +17,14 @@ range.  From the trace it prints one JSON line with:
   (the benchmark's label) and its time by innermost span;
 * ``kernels_by_span``: device operation time by the innermost span open when
   the host op that launched it began (kernels the autograd engine's thread
-  launches during ``grad`` count there);
+  launches during ``grad`` count there); ``kernel_names_by_span`` the same
+  time by operation name, the five largest of each span;
 * ``device_s_by_span``: the recorder's own ``device_s`` summed by path over
   the same rounds, to hold against ``kernels_by_span``;
+* ``counters``: the round records' counters summed over the same rounds
+  (``sgd_update.launches``, ``sgd_update.elements`` and
+  ``sgd_update.kernel_elements``: the update's launches and the elements it
+  updated by the kernel, against all);
 * the card (name, power limit).
 
 Needs a CUDA device; ``--device cpu --smoke`` runs the cell at the CPU
@@ -66,9 +71,9 @@ def analyse(events) -> dict:
             ops[e.correlation_id()] = e.start_ns()        # a host op, not a runtime call
         elif e.device_type() == cuda and not e.is_user_annotation():
             kernels.append((e.start_ns(), e.start_ns() + e.duration_ns(),
-                            e.linked_correlation_id()))
+                            e.linked_correlation_id(), e.name()))
     busy = []
-    for a, b, _ in sorted(kernels):
+    for a, b, *_ in sorted(kernels):
         if busy and a <= busy[-1][1]:
             busy[-1][1] = max(busy[-1][1], b)
         else:
@@ -83,18 +88,24 @@ def analyse(events) -> dict:
                      "by_span": dict(sorted(parts.items(), key=lambda kv: -kv[1])[:4])})
     gaps.sort(key=lambda g: -g["s"])
     by_span = defaultdict(float)
+    by_name = defaultdict(lambda: defaultdict(float))
     unlinked = 0.0
-    for a, b, corr in kernels:
+    for a, b, corr, name in kernels:
         t = ops.get(corr)
         if t is None:
             unlinked += (b - a) * 1e-9
             continue
-        by_span[innermost(ranges, t)] += (b - a) * 1e-9
+        path = innermost(ranges, t)
+        by_span[path] += (b - a) * 1e-9
+        by_name[path][name[:80]] += (b - a) * 1e-9
     return {"busy_s": sum(b - a for a, b in busy) * 1e-9,
             "idle_s": sum(idle.values()),
             "idle_by_span": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
             "top_gaps": gaps[:12],
             "kernels_by_span": dict(sorted(by_span.items(), key=lambda kv: -kv[1])),
+            "kernel_names_by_span": {
+                path: dict(sorted(names.items(), key=lambda kv: -kv[1])[:5])
+                for path, names in by_name.items()},
             "kernels_unlinked_s": unlinked}
 
 
@@ -128,7 +139,10 @@ def main(argv=None) -> int:
     out = analyse(prof.profiler.kineto_results.events())
     dev_s = defaultdict(float)
     wall = defaultdict(float)
+    counters = defaultdict(int)
     for r in srv.obs.records:
+        for k, v in r.get("metrics", {}).get("counters", {}).items():
+            counters[k] += v
         for s in r.get("spans", []):
             dev_s[s["span"]] += s.get("device_s", 0.0)
             wall[s["span"]] += s["wall_s"]
@@ -137,6 +151,7 @@ def main(argv=None) -> int:
     out.update(workload=args.workload, seed=args.seed, rounds=args.rounds, window_s=window,
                device_s_by_span=dict(sorted(dev_s.items(), key=lambda kv: -kv[1])),
                wall_s_by_span=dict(sorted(wall.items(), key=lambda kv: -kv[1])),
+               counters=dict(sorted(counters.items())),
                card=card())
     emit(out, args.out)
     return 0

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.fl._tree import tree_device, tree_iter, tree_leaves, tree_map, tree_unflatten
-from repro_torch.obs.profiling import span
+from repro_torch.kernels.sgd_update import sgd_update, sgd_update_cuda
+from repro_torch.obs.profiling import active_profiler, span
 
 Params = Dict[str, torch.Tensor]
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -63,24 +64,24 @@ def _sgd_leaf(lr: float):
     return lambda a, g: (a.float() - lr * g.float()).to(a.dtype)
 
 
-# stacked leaves with more elements than this step client by client, so the
-# fp32 temporaries of one update hold one client's leaf, not the cohort's
-_STACKED_STEP_CHUNK = 1 << 26
-
-
 def _sgd_stacked(lr: float):
-    """:func:`_sgd_leaf` over a leaf with a leading client axis.  A large
-    leaf (an LM's embedding at full width) is updated one client at a time
-    into one contiguous output: the same value per entry, while the fp32
-    temporaries shrink by the cohort size."""
-    step = _sgd_leaf(lr)
-
+    """:func:`_sgd_leaf` over a leaf with a leading client axis, as the op
+    ``repro_torch::sgd_update`` (:mod:`repro_torch.kernels.sgd_update`): on
+    the card one kernel that reads the leaf and its gradient once, on the
+    CPU the plain version.  Under an active recorder each leaf counts into
+    the round record: ``sgd_update.launches``, and the elements updated by
+    the kernel (``sgd_update.kernel_elements``) against all updated
+    (``sgd_update.elements``)."""
     def one(a, g):
-        if a.numel() <= _STACKED_STEP_CHUNK:
-            return step(a, g)
-        out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
-        for j in range(a.shape[0]):
-            out[j] = step(a[j], g[j])
+        prof = active_profiler()
+        if prof is None:
+            return sgd_update(a, g, lr)
+        before = sgd_update_cuda.launches
+        out = sgd_update(a, g, lr)
+        launched = sgd_update_cuda.launches - before
+        prof.metrics.count("sgd_update.launches", launched)
+        prof.metrics.count("sgd_update.elements", out.numel())
+        prof.metrics.count("sgd_update.kernel_elements", out.numel() if launched else 0)
         return out
     return one
 

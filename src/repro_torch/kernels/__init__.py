@@ -18,13 +18,17 @@
                    prefill scan
     rwkv6          RWKV6 WKV recurrence with data-dependent decay (CUDA C++,
                    csrc/rwkv6.cu); ops.wkv6_heads is RWKV6's prefill WKV core
+    sgd_update     the SGD update of a stacked parameter leaf in one pass
+                   (CUDA C++, csrc/sgd_update.cu); ops.sgd_update is the
+                   vmapped FL executor's update
 
 ``_build`` compiles each source with ``nvcc`` at first use and binds it with
 ``ctypes``.
 
-The three model kernels are dispatcher ops in the ``repro_torch`` namespace
-(:func:`define_op`): ``repro_torch::flash_attention``,
-``repro_torch::selective_scan`` and ``repro_torch::wkv6``.  Each has a CUDA
+The three model kernels and the update are dispatcher ops in the
+``repro_torch`` namespace (:func:`define_op`): ``repro_torch::flash_attention``,
+``repro_torch::selective_scan``, ``repro_torch::wkv6`` and
+``repro_torch::sgd_update``.  Each has a CUDA
 implementation (the launch), a CPU one (the plain version) and a fake one
 (the outputs' shapes, after the launch's data-free checks), so meta and fake
 tensors, ``torch.profiler`` and a dispatch mode all see one op by one name;

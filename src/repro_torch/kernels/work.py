@@ -13,10 +13,12 @@ column alike.
   one), plus ``dt * x`` once per channel; the exps also on their own;
 * ``wkv6``: per (sequence, token, head) ``r.S``, ``w S + k v`` and the bonus
   term over the (n, n) state (5 n^2), plus 4 n for the bonus weights and the
-  decay's exp; the exps also on their own.
+  decay's exp; the exps also on their own;
+* ``sgd_update``: the product and the difference, 2 operations per updated
+  element.
 
-The scans run on the CUDA cores: the counter books their operations as
-``flops`` only.
+The scans and the update run on the CUDA cores: the counter books their
+operations as ``flops`` only.
 """
 from __future__ import annotations
 
@@ -71,4 +73,6 @@ def op_work(name: str, args: Sequence) -> Tuple[float, float]:
     if name == "wkv6":
         b, t, h, n = args[0].shape
         return wkv_ops(b, t, h, n), 0.0
+    if name == "sgd_update":
+        return 2.0 * args[0].numel(), 0.0
     raise KeyError(f"no work formula for repro_torch::{name}")

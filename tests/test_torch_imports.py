@@ -81,6 +81,9 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/rwkv6/kernel.py",
                  "src/repro_torch/kernels/rwkv6/ops.py",
                  "src/repro_torch/kernels/rwkv6/ref.py",
+                 "src/repro_torch/kernels/sgd_update/kernel.py",
+                 "src/repro_torch/kernels/sgd_update/ops.py",
+                 "src/repro_torch/kernels/sgd_update/ref.py",
                  "src/repro_torch/optim/optimizers.py",
                  "src/repro_torch/optim/schedules.py",
                  "src/repro_torch/checkpoint/msgpack_ckpt.py",
@@ -94,7 +97,7 @@ def test_port_files_exist():
                  "src/repro_torch/models/sharding.py"):
         assert want in names
     for cu in ("pairwise_rank", "select_topk", "fleet_state", "flash_attention",
-               "mamba", "rwkv6"):
+               "mamba", "rwkv6", "sgd_update"):
         assert (ROOT / f"src/repro_torch/csrc/{cu}.cu").is_file()
     assert (ROOT / "src/repro_torch/fl/traces/data/sample_livelab.csv").is_file()
 

@@ -178,17 +178,18 @@ def test_lm_task_pieces_equal_reference():
 
 
 def test_large_leaves_step_client_by_client(monkeypatch):
-    """The vmapped executor updates a leaf past ``_STACKED_STEP_CHUNK``
+    """The vmapped executor's update on the CPU (the plain version of
+    ``repro_torch::sgd_update``) steps a leaf past ``STACKED_STEP_CHUNK``
     elements one client at a time into a contiguous leaf: with every leaf
     taking that route, a two-step round gives the same cohort and its
     params within 1e-5 (the same values per step; a contiguous leaf may take
     another GEMM path in the next step), and the losses of the first step
     the same bits."""
-    import repro_torch.fl.client as tclient
+    from repro_torch.kernels.sgd_update import ref as sgd_ref
 
     runs = []
-    for chunk in (tclient._STACKED_STEP_CHUNK, 0):
-        monkeypatch.setattr(tclient, "_STACKED_STEP_CHUNK", chunk)
+    for chunk in (sgd_ref.STACKED_STEP_CHUNK, 0):
+        monkeypatch.setattr(sgd_ref, "STACKED_STEP_CHUNK", chunk)
         _, tsrv = _servers("vmapped", local_batch=8)
         runs.append((tsrv.run(tfl.build_policy("fedavg"))[0], tsrv))
     (ra, sa), (rb, sb) = runs

@@ -14,7 +14,9 @@
   The port's own spans (``PORT_ONLY_SPANS``: the round's context, request
   building, the vmapped executor's inputs, gradient and SGD update, FedRank's
   featurising and TD steps) are taken out by name before the comparison and
-  checked present on their own.
+  checked present on their own; so are its own counters
+  (``PORT_ONLY_COUNTERS``: the vmapped executor's SGD-update launches and
+  elements).
 * ``observe=None`` is the shared ``NULL_RECORDER``, and an observed run
   gives exactly the cohorts and params of an unobserved one.
 * The pieces: span nesting and both clocks, device times resolved at the
@@ -52,6 +54,9 @@ VOLATILE_KEYS = {"wall_s", "t0_s", "device_s", "host_time_s", "host_s", "created
 # span at these boundaries)
 PORT_ONLY_SPANS = {"context", "requests", "inputs", "grad", "sgd_update", "featurize",
                    "td_steps"}
+# counters that only the port records (the vmapped executor's update op)
+PORT_ONLY_COUNTERS = {"sgd_update.launches", "sgd_update.elements",
+                      "sgd_update.kernel_elements"}
 # float fields that carry the model's quality: equal within fp32 rounding
 MODEL_KEYS = {"acc"}
 # the reference's backend routes under the port's names (on the CPU the
@@ -148,6 +153,8 @@ def _assert_records_match(jrec, trec):
         if r.get("type") == "round":
             port_only |= {s["span"] for s in g["spans"] if _leaf(s["span"]) in PORT_ONLY_SPANS}
             g["spans"] = [s for s in g["spans"] if _leaf(s["span"]) not in PORT_ONLY_SPANS]
+            for name in PORT_ONLY_COUNTERS:
+                g["metrics"]["counters"].pop(name, None)
             assert [s["span"] for s in g["spans"]] == [s["span"] for s in r["spans"]], i
         _assert_same_value(r, g, f"record[{i}]")
     return port_only
@@ -196,6 +203,12 @@ def test_observed_async_trace_records_equal_reference(fl_data, executor):
                or r is rounds[0] for r in rounds)
     if executor == "vmapped":
         assert any(k.startswith("vmapped.bucket_step[") for r in rounds for k in r["ops"])
+    # the update's counters: every element on the plain version on the CPU
+    counters = [r["metrics"]["counters"] for r in rounds]
+    elements = sum(c.get("sgd_update.elements", 0) for c in counters)
+    assert (elements > 0) == (executor == "vmapped")
+    assert sum(c.get("sgd_update.launches", 0) + c.get("sgd_update.kernel_elements", 0)
+               for c in counters) == 0
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])
