@@ -11,7 +11,6 @@ and policy then go into the window.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -26,36 +25,25 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from perfbench import check, flops
+from perfbench import check, families, flops
 from perfbench.reference import fl as ref_fl
 from perfbench.reference import model as ref_model
 from perfbench.traffic import generator
 from perfbench.weights import model_weights, qnet_weights
 
 ROOT = Path(__file__).resolve().parent
-MODEL_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
-              "vocab_size", "rope_theta", "dtype", "remat")
-# the configuration files' published key -> the name the harness uses
-PUBLISHED = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
-             "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-             "head_dim": "head_dim", "intermediate_size": "d_ff", "vocab_size": "vocab_size",
-             "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps"}
-MOE_KEYS = {"num_experts": "n_experts", "num_experts_per_tok": "top_k",
-            "router_aux_loss_coef": "load_balance_coef", "router_z_loss_coef": "router_z_coef",
-            "capacity_factor": "capacity_factor", "norm_topk_prob": "norm_topk_prob"}
 PROFILED_ROUNDS = 3
 
 
-def model_dims(raw: dict) -> dict:
-    """A configuration file's model in the harness's names: the sizes under
-    their published keys, ``model`` (the port's registry name), ``dtype``,
-    ``remat``, and for an expert model the router's settings."""
-    conf = {PUBLISHED[k]: v for k, v in raw.items() if k in PUBLISHED}
-    conf.update(name=raw["name"], model=raw["model"], dtype=raw["dtype"], remat=raw["remat"])
-    if "num_experts" in raw:
-        conf["moe"] = {v: raw[k] for k, v in MOE_KEYS.items()}
-        conf["moe"]["d_ff_expert"] = conf["d_ff"]
-    return conf
+def model_dims(raw: dict, root: Path = ROOT) -> dict:
+    """A configuration file's model in the harness's names, by its family:
+    ``<root>/families/<family>.py`` where the file names one, which leaves
+    that file under ``family`` for the dispatchers
+    (:func:`perfbench.families.of`), else the benchmark's ``decoder``."""
+    if "family" not in raw:
+        return families.load(families.DEFAULT).dims(raw)
+    fam = families.load(raw["family"], root)
+    return dict(fam.dims(raw), family=fam.__file__)
 
 
 def load_cell(name: str, root: Path = ROOT):
@@ -63,22 +51,17 @@ def load_cell(name: str, root: Path = ROOT):
     under ``root``: ``workloads/<cell>.json`` names its configuration
     (``configs/<config>.json``) and its mix (``traffic/<mix>.json``)."""
     wl = json.loads((root / "workloads" / f"{name}.json").read_text())
-    conf = model_dims(json.loads((root / "configs" / f"{wl['config']}.json").read_text()))
+    conf = model_dims(json.loads((root / "configs" / f"{wl['config']}.json").read_text()), root)
     return wl, conf, generator.load_mix(wl["traffic"], root / "traffic")
 
 
 def port_config(conf: dict):
     """The port's ModelConfig for the configuration file: its registry
-    entry with every size the file states."""
+    entry with the fields its family sets from the file."""
     from repro_torch.configs import get_model_config
 
     base = get_model_config(conf["model"])
-    fields = {k: conf[k] for k in MODEL_KEYS if k in conf}
-    if conf.get("moe"):
-        moe_keys = {f.name for f in dataclasses.fields(base.moe)}
-        fields["moe"] = dataclasses.replace(
-            base.moe, **{k: v for k, v in conf["moe"].items() if k in moe_keys})
-    return dataclasses.replace(base, **fields)
+    return dataclasses.replace(base, **families.of(conf).port_fields(conf, base))
 
 
 class LoggedPolicy:
@@ -214,21 +197,6 @@ def reference_check(prog_rec: dict, log: list, conf: dict, mix: dict, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def _span_recorder():
-    """An in-memory recorder of the port's spans that also opens a profiler
-    range for each, so a trace shows which span the host was in."""
-    from torch.profiler import record_function
-
-    from repro_torch.obs.recorder import RunRecorder
-
-    class Traced(RunRecorder):
-        @contextlib.contextmanager
-        def span(self, name, clock=None):
-            with record_function(name), super().span(name, clock) as s:
-                yield s
-    return Traced()
-
-
 def _union(intervals: List[tuple]) -> List[tuple]:
     out: List[list] = []
     for a, b in sorted(intervals):
@@ -290,7 +258,9 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t_start: float,
     weights = model_weights(conf, seed, dev)
     q0 = qnet_weights(seed, dev)
     fed = generator.make_federation(mix, conf["vocab_size"], seed, dev)
-    recorder = _span_recorder() if trace else None
+    from repro_torch.obs.recorder import RunRecorder
+
+    recorder = RunRecorder() if trace else None   # a span opens a profiler range
     srv, policy = build_program(conf, mix, fed, weights, q0, seed, dev, observe=recorder)
     prog_rec, log = checked_rounds(srv, policy, mix, weights, q0)
     del weights

@@ -1,12 +1,10 @@
 """Plain PyTorch reference of the benchmark's language models.
 
-A llama-style decoder (Yi-6B: RMSNorm, GQA attention with half-split RoPE,
-SiLU-gated FFN) and its mixture-of-experts variant (OLMoE-1B-7B: a softmax
-router over 64 experts, top 8 with ties to the lowest expert, the gates
-renormalised where the configuration says so, a per-call capacity of ``capacity_factor * tokens * k / E``
-rounded up to 8 with tokens kept in order, the Switch load-balance and
-router-z losses), written from the published descriptions in float32 with
-no kernel, cache or batching beyond the plain products.
+What every family shares: the precisions, the products, RMSNorm, RoPE, the
+SiLU-gated FFN, the loss, the SGD step and the evaluation.  Each family's
+forward (``perfbench/families/<family>.py``) builds its block from these,
+written from the published descriptions in float32 with no kernel, cache
+or batching beyond the plain products.
 
 Parameters are a nested dict in the layout the port keeps (layers stacked
 on a leading axis).  Each leaf is held in its storage dtype and read as
@@ -15,11 +13,12 @@ input is rounded, which is all the benchmark's control changes.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+
+from perfbench import families
 
 Params = Dict[str, Any]
 FP8_MAX = 448.0          # largest float8_e4m3fn value
@@ -88,81 +87,15 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _attention(cfg: dict, lp: Params, h: torch.Tensor, prec: Precision) -> torch.Tensor:
-    b, s, _ = h.shape
-    nh, nkv, dh = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-    q = _rope(_mm(prec, h, lp["wq"]).view(b, s, nh, dh), cfg["rope_theta"])
-    k = _rope(_mm(prec, h, lp["wk"]).view(b, s, nkv, dh), cfg["rope_theta"])
-    v = _mm(prec, h, lp["wv"]).view(b, s, nkv, dh)
-    rep = nh // nkv                      # query head i reads key head i // rep
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", prec.act(q), prec.act(k)) / math.sqrt(dh)
-    causal = torch.ones(s, s, dtype=torch.bool, device=h.device).tril()
-    probs = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", prec.act(probs), prec.act(v))
-    return _mm(prec, out.reshape(b, s, nh * dh), lp["wo"])
-
-
 def _ffn(prec: Precision, x: torch.Tensor, up, gate, down) -> torch.Tensor:
     return _mm(prec, torch.nn.functional.silu(_mm(prec, x, gate)) * _mm(prec, x, up), down)
 
 
-def _moe(cfg: dict, mp: Params, h: torch.Tensor, prec: Precision
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The expert layer over one call's tokens: (output, aux loss)."""
-    moe = cfg["moe"]
-    e, k = moe["n_experts"], moe["top_k"]
-    b, s, d = h.shape
-    t = b * s
-    xt = h.reshape(t, d)
-    logits = xt @ mp["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates = srt[:, :k]
-    if moe["norm_topk_prob"]:
-        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
-    idx = order[:, :k]                                  # (T, k)
-    cap = int(t * k / e * moe["capacity_factor"])
-    cap = max(8, (cap + 7) // 8 * 8)
-    flat = idx.reshape(-1)                              # token-major order
-    onehot = torch.nn.functional.one_hot(flat, e)
-    pos = ((onehot.cumsum(0) - onehot) * onehot).sum(-1)
-    keep = (pos < cap).reshape(t, k)
-    y = torch.zeros_like(xt)
-    w = gates * keep
-    for ex in range(e):
-        tok, slot = torch.nonzero((idx == ex) & keep, as_tuple=True)
-        if len(tok) == 0:
-            continue
-        out = _ffn(prec, xt[tok], mp["up"][ex], mp["gate"][ex], mp["down"][ex])
-        y = y.index_add(0, tok, out * w[tok, slot, None])
-    me = probs.mean(0)
-    ce = onehot.sum(0).float() / (t * k)
-    aux = (moe["load_balance_coef"] * e * torch.sum(me * ce)
-           + moe["router_z_coef"] * torch.mean(torch.logsumexp(logits, -1) ** 2))
-    return y.reshape(b, s, d), aux
-
-
 def forward(p: Params, cfg: dict, tokens: torch.Tensor, prec: Precision = REFERENCE
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) fp32, the MoE layers' aux loss)."""
-    x = p["embed"].float()[tokens.long()]
-    aux = torch.zeros((), device=x.device)
-    lay = p["layers"]
-    for i in range(cfg["n_layers"]):
-        lp = {g: {n: v[i] for n, v in lay[g].items()} for g in lay}
-        x = x + _attention(cfg, lp["attn"], _rmsnorm(x, lp["norm1"]["scale"], cfg["norm_eps"]), prec)
-        h = _rmsnorm(x, lp["norm2"]["scale"], cfg["norm_eps"])
-        if "moe" in lp:
-            y, a = _moe(cfg, lp["moe"], h, prec)
-            aux = aux + a
-        else:
-            m = lp["mlp"]
-            y = _ffn(prec, h, m["up"], m["gate"], m["down"])
-        x = x + y
-    x = _rmsnorm(x, p["final_norm"]["scale"], cfg["norm_eps"])
-    return _mm(prec, x, p["lm_head"]), aux
+    """tokens (B, S) -> (logits (B, S, V) fp32, aux loss): the forward of
+    ``cfg``'s family (``perfbench/families/``)."""
+    return families.of(cfg).forward(p, cfg, tokens, prec)
 
 
 def loss_and_logits(p: Params, cfg: dict, x: torch.Tensor, y: torch.Tensor,
