@@ -24,7 +24,12 @@ range.  From the trace it prints one JSON line with:
 * ``counters``: the round records' counters summed over the same rounds
   (``sgd_update.launches``, ``sgd_update.elements`` and
   ``sgd_update.kernel_elements``: the update's launches and the elements it
-  updated by the kernel, against all);
+  updated by the kernel, against all; in the expert cells ``moe.slots``,
+  ``moe.pairs_held`` and ``moe.pairs_kept`` of the evaluation's expert
+  layers), and ``moe_slot_fill``, 100 x kept pairs over slots;
+* ``mla`` and ``moe`` (each MLA block and expert layer, inside ``grad``
+  and ``evaluate``) among the spans of ``device_s_by_span`` and
+  ``kernels_by_span``;
 * the card (name, power limit).
 
 Needs a CUDA device; ``--device cpu --smoke`` runs the cell at the CPU
@@ -152,6 +157,8 @@ def main(argv=None) -> int:
                device_s_by_span=dict(sorted(dev_s.items(), key=lambda kv: -kv[1])),
                wall_s_by_span=dict(sorted(wall.items(), key=lambda kv: -kv[1])),
                counters=dict(sorted(counters.items())),
+               moe_slot_fill=(100.0 * counters["moe.pairs_kept"] / counters["moe.slots"]
+                              if counters.get("moe.slots") else None),
                card=card())
     emit(out, args.out)
     return 0

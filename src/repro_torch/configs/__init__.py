@@ -3,7 +3,9 @@
 ``get_model_config("yi-6b")`` returns the full assigned config;
 ``get_model_config("yi-6b", smoke=True)`` returns the reduced same-family
 variant used by CPU smoke tests.  The port's own copy of the reference's
-registry (``repro.configs``), with the same names and aliases.
+registry (``repro.configs``), with the same names and aliases, which
+:func:`list_archs` lists; beside it the port-only architectures, which
+:func:`port_archs` lists and ``get_model_config`` resolves as well.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.configs.base import (
 )
 
 from repro_torch.configs import (  # noqa: E402
+    deepseek_v2_lite,
     gemma_7b,
     h2o_danube_3_4b,
     hymba_1_5b,
@@ -65,14 +68,27 @@ _ALIASES = {
 }
 
 
+# the port's own architectures (no reference counterpart), each with its
+# smoke variant
+_PORT_ONLY = {m.CONFIG.name: m for m in (deepseek_v2_lite,)}
+
+
 def list_archs() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def port_archs() -> List[str]:
+    """The port-only architectures, which :func:`list_archs` leaves out."""
+    return sorted(_PORT_ONLY)
+
+
 def get_model_config(name: str, *, smoke: bool = False) -> ModelConfig:
     key = _ALIASES.get(name, name)
+    if key in _PORT_ONLY:
+        cfg = _PORT_ONLY[key].CONFIG
+        return _PORT_ONLY[key].reduced(cfg) if smoke else cfg
     if key not in _REGISTRY:
-        raise KeyError(f"unknown architecture {name!r}; have {list_archs()}")
+        raise KeyError(f"unknown architecture {name!r}; have {list_archs() + port_archs()}")
     cfg = _REGISTRY[key]
     return reduced(cfg) if smoke else cfg
 
@@ -87,5 +103,6 @@ __all__ = [
     "get_shape",
     "get_model_config",
     "list_archs",
+    "port_archs",
     "reduced",
 ]

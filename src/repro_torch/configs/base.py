@@ -34,6 +34,20 @@ class MoEConfig:
     dispatch: str = "sort"
     n_groups: int = 1             # launch layer aligns this with the data axis
 
+    # Settings that only a port-only subclass makes fields
+    # (configs/deepseek_v2_lite.py ``SharedMoEConfig``): class attributes
+    # here, not fields, so this class stays field for field the reference's.
+    n_shared_experts = 0          # shared SwiGLU experts beside the routed ones
+    norm_topk_prob = True         # renormalise the top-k gates to sum to 1
+    seq_aux = False               # balance loss per sequence, not per call
+    experts_held = 0              # routed experts this layer holds (0: all) ...
+    expert_offset = 0             # ... from this one on
+
+    @property
+    def held(self) -> int:
+        """How many routed experts this layer holds and computes."""
+        return self.experts_held or self.n_experts
+
 
 @dataclass(frozen=True)
 class SSMConfig:
@@ -101,6 +115,10 @@ class ModelConfig:
     remat: bool = True            # activation checkpointing around each layer
     kv_cache_dtype: str = ""      # "" -> dtype; e.g. "float8_e4m3fn" halves
     #                               decode cache memory (beyond-paper serving)
+
+    # Leading dense layers before the expert stack: only a port-only subclass
+    # sets it (configs/deepseek_v2_lite.py); a class attribute, not a field.
+    first_k_dense = 0
 
     # ------------------------------------------------------------------
     # Derived quantities

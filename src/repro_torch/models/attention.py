@@ -22,19 +22,57 @@ stays plain tensor code, as the reference leaves it to XLA.
 Unlike the reference, whose arrays are immutable, :func:`attention_decode`
 writes the new token's K/V into the cache tensors in place and returns a
 cache that shares them.
+
+Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434 section 2.1 and
+the ``modeling_deepseek.py`` published with its config; a port-only
+architecture, :mod:`repro_torch.configs.deepseek_v2_lite`),
+:func:`mla_prefill`, with ``x`` the normed input:
+
+* ``q = x Wq``, split per head into ``q_nope`` (``qk_nope_head_dim``) and
+  ``q_pe`` (``qk_rope_head_dim``); there is no low-rank query;
+* ``[c_kv, k_pe] = x Wkv_a`` (widths ``kv_lora_rank`` and
+  ``qk_rope_head_dim``), ``c_kv = RMSNorm(c_kv)`` (an fp32 scale, eps 1e-6);
+* ``[k_nope, v] = c_kv Wkv_b`` per head (``qk_nope_head_dim``,
+  ``v_head_dim``);
+* ``q_pe`` and the one ``k_pe`` take YaRN RoPE; ``k_pe`` is shared by
+  every head;
+* ``score = [q_nope, q_pe].[k_nope, k_pe] x qk_head_dim^-0.5 x m^2`` with
+  ``m = 0.1 mscale_all_dim ln(factor) + 1``; causal softmax in fp32;
+  ``out = p v``, then ``out Wo`` over ``heads x v_head_dim``.
+
+YaRN's frequencies over the ``qk_rope_head_dim`` RoPE dimensions
+(:func:`yarn_freqs`): ``inv = inter (1 - mask) + extra mask`` with
+``extra = theta^(-2i/dim)``, ``inter = extra / factor`` and ``mask = 1 -
+ramp(low, high)`` over the correction range of ``beta_fast`` and
+``beta_slow`` at the original context; the cos/sin scale
+``mscale(factor, mscale) / mscale(factor, mscale_all_dim)`` is 1 for the
+published settings and is applied as computed.
+
+Departures: the q.k product is summed as ``q_nope.k_nope + q_pe.k_pe``
+(the same terms, no per-head copy of ``k_pe``), and the rotated ``q_pe``
+and ``k_pe`` enter it in fp32 (the products' inputs are fp32 throughout).
+Layout note: the published checkpoint stores each RoPE slice's columns
+interleaved and its code de-interleaves them before rotating halves; with
+random weights that is a fixed permutation of the columns, so the port
+rotates its half-split layout, as
+:func:`repro_torch.models.layers.apply_rope` does.  MLA runs on the
+``naive`` route only (the route ``LMTask`` trains through); prefill and
+decode, which would need a latent KV cache, refuse it.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch._functorch.pyfunctorch import temporarily_clear_interpreter_stack
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.flash_xla import flash_attention_xla
-from repro_torch.models.layers import apply_rope, dense_init_on
+from repro_torch.models.layers import apply_norm, apply_rope, dense_init_on, init_norm
 from repro_torch.models.sharding import (
     as_dtensor,
     local_map_heads,
@@ -44,6 +82,7 @@ from repro_torch.models.sharding import (
     shard,
     whole_heads,
 )
+from repro_torch.obs.profiling import span
 
 NEG_INF = -1e30
 IMPLS = ("naive", "flash", "blocked")
@@ -351,3 +390,109 @@ def _ring_write(buf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> Non
     lsc = ls.clamp(0, local.shape[1] - 1)
     rows = torch.arange(local.shape[0], device=local.device)
     local[rows, lsc] = torch.where(hit[:, None, None], new_l, local[rows, lsc])
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``wq`` (d, H (nope + rope)), ``wkv_a`` (d, rank + rope), the latent
+    norm ``kv_norm`` (fp32 scale of ``rank``), ``wkv_b`` (rank, H (nope +
+    v)) and ``wo`` (H v, d); every leaf with ``lead`` stacked axes first."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init_on(gen, d, h * (nope + rope), dtype, lead),
+        "wkv_a": dense_init_on(gen, d, r + rope, dtype, lead),
+        "kv_norm": init_norm("rmsnorm", r, torch.float32, gen.device, lead),
+        "wkv_b": dense_init_on(gen, r, h * (nope + vd), dtype, lead),
+        "wo": dense_init_on(gen, h * vd, d, dtype, lead),
+    }
+
+
+def _yarn_mscale(scale: float, mscale: float) -> float:
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_freqs(cfg: ModelConfig, device=None) -> Tuple[torch.Tensor, float]:
+    """(inverse frequencies (rope/2,) fp32, the cos/sin scale) of YaRN over
+    ``cfg.qk_rope_head_dim`` dimensions, as the published code computes
+    them."""
+    dim, base, factor = cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_factor
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (base ** exps)
+    inter = 1.0 / (factor * base ** exps)
+
+    def corr(rot: float) -> float:
+        return (dim * math.log(cfg.rope_original_max_pos / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr(cfg.rope_beta_fast)), 0)
+    high = min(math.ceil(corr(cfg.rope_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    mask = 1.0 - ramp
+    inv = inter * (1 - mask) + extra * mask
+    scale = (_yarn_mscale(factor, cfg.rope_mscale)
+             / _yarn_mscale(factor, cfg.rope_mscale_all_dim))
+    return inv, scale
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """``qk_head_dim^-0.5 x m^2``, ``m`` YaRN's temperature of
+    ``mscale_all_dim`` (1 without it)."""
+    m = _yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim) if cfg.rope_mscale_all_dim else 1.0
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5 * m * m
+
+
+@functools.lru_cache(maxsize=16)
+def _mla_tables(cfg: ModelConfig, s: int, device: torch.device):
+    """(cos, sin) (S, 1, rope/2) fp32 of YaRN at positions 0..S-1, times
+    its cos/sin scale, and the (S, S) causal mask: the same for every call
+    at one length, so made once, outside any ``torch.func`` transform (a
+    tensor made inside one would be that transform's, and leak from it)."""
+    with temporarily_clear_interpreter_stack():
+        inv, scale = yarn_freqs(cfg, device)
+        ang = torch.arange(s, dtype=torch.float32, device=device)[:, None] * inv
+        pos = torch.arange(s, device=device)
+        return ((torch.cos(ang) * scale)[:, None, :], (torch.sin(ang) * scale)[:, None, :],
+                pos[None, :] <= pos[:, None])
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of x (..., S, H, D) in fp32."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def mla_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+                impl: str = "naive") -> torch.Tensor:
+    """MLA over a full causal sequence (the module docstring's equations):
+    x (B, S, d) -> (B, S, d), on the ``naive`` route only.  Opens the span
+    ``mla``."""
+    if impl != "naive":
+        raise ValueError(f"{cfg.name}: multi-head latent attention runs on the naive "
+                         f"route only, not {impl!r}")
+    with span("mla"):
+        b, s, _ = x.shape
+        h, r = cfg.n_heads, cfg.kv_lora_rank
+        nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        cos, sin, causal = _mla_tables(cfg, s, x.device)
+        q = (x @ p["wq"]).reshape(b, s, h, nope + rope)
+        kv_a = x @ p["wkv_a"]
+        c_kv = apply_norm("rmsnorm", p["kv_norm"], kv_a[..., :r])
+        kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, nope + vd)
+        q_pe = _rotate(q[..., nope:], cos, sin)
+        k_pe = _rotate(kv_a[..., None, r:], cos, sin)[:, :, 0]        # (B, S, rope), every head's
+        scores = (torch.einsum("bqhd,bkhd->bhqk", q[..., :nope].float(), kv[..., :nope].float())
+                  + torch.einsum("bqhd,bkd->bhqk", q_pe, k_pe))
+        scores = (scores * mla_softmax_scale(cfg)).masked_fill(~causal, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, kv[..., nope:].float()).to(x.dtype)
+        return out.reshape(b, s, h * vd) @ p["wo"]

@@ -12,13 +12,20 @@ optional encoder) covering every family.
   parallel on the same normed input, averaged, then the FFN;
 * ``audio`` (whisper-medium): a bidirectional encoder over the frontend's
   frames and a causal decoder with cross-attention, both with sinusoidal
-  positions.
+  positions;
+* ``attention="mla"`` (the port-only deepseek-v2-lite): multi-head latent
+  attention (:func:`repro_torch.models.attention.mla_prefill`) in every
+  layer; ``cfg.first_k_dense`` dense layers (FFN width ``cfg.d_ff_dense``)
+  come first, then the expert layers.  Training and evaluation only:
+  :func:`prefill` and the decode steps refuse it (no latent KV cache).
 
 Parameters are the reference's pytree as nested dicts of tensors:
 ``{"embed", "final_norm", "layers": {...}, "lm_head"}``, plus
 ``"encoder": {"layers", "final_norm"}`` for the encoder-decoder and
-``"frontend_proj"`` where the frontend's width is not d_model; every
-``layers`` leaf is stacked over a leading ``L`` axis.  The layer loop is a
+``"frontend_proj"`` where the frontend's width is not d_model, and
+``"dense_layers"`` (the leading dense layers) beside ``"layers"`` where
+``cfg.first_k_dense`` is set; every ``layers`` leaf is stacked over a
+leading ``L`` axis, each group over its own.  The layer loop is a
 Python loop over ``L`` that indexes those leaves (views, no copies) in
 place of ``lax.scan``.  ``cfg.remat`` checkpoints each layer of
 :func:`forward`, the encoder's too, as the reference's ``jax.checkpoint``
@@ -75,8 +82,15 @@ class DecodeState(NamedTuple):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` for an attention kind no family has."""
-    if cfg.attention not in ("full", "swa", "hybrid", "none"):
+    if cfg.attention not in ("full", "swa", "hybrid", "none", "mla"):
         raise ValueError(f"{cfg.name}: unknown attention kind {cfg.attention!r}")
+
+
+def _refuse_latent_cache(cfg: ModelConfig, what: str) -> None:
+    if cfg.attention == "mla":
+        raise ValueError(f"{cfg.name}: {what} needs a latent KV cache, which the port "
+                         "does not have; multi-head latent attention runs in training "
+                         "and evaluation (forward, loss_fn) only")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -100,10 +114,11 @@ def layer_params(layers: Params, i: int) -> Params:
 
 
 def _init_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                 dev: torch.device, n: int, *, cross: bool) -> Params:
+                 dev: torch.device, n: int, *, cross: bool, dense: bool = False) -> Params:
     """``n`` stacked layers (the reference's ``_init_layer`` under
     ``jax.vmap``): norms, the mixer, whisper's cross-attention when
-    ``cross``, and the FFN or the experts."""
+    ``cross``, and the FFN or the experts (``dense``: an MLA model's leading
+    dense layers, FFN width ``cfg.d_ff_dense``)."""
     lead = (n,)
     layers: Params = {
         "norm1": init_norm(cfg.norm, cfg.d_model, torch.float32, dev, lead),
@@ -112,6 +127,14 @@ def _init_layers(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     if cfg.attention == "none":  # rwkv
         layers["time_mix"] = ssm_lib.init_rwkv_time_mix(gen, cfg, dtype, lead)
         layers["channel_mix"] = ssm_lib.init_rwkv_channel_mix(gen, cfg, dtype, lead)
+        return layers
+    if cfg.attention == "mla":
+        layers["attn"] = attn.init_mla(gen, cfg, dtype, lead)
+        if dense:
+            layers["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff_dense, cfg.activation, dtype,
+                                     lead)
+        else:
+            layers["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
         return layers
     layers["attn"] = attn.init_attention(gen, cfg, dtype, lead)
     if cfg.attention == "hybrid":
@@ -137,8 +160,12 @@ def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None) -> Param
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": init_norm(cfg.norm, cfg.d_model, torch.float32, dev),
-        "layers": _init_layers(gen, cfg, dtype, dev, cfg.n_layers, cross=cfg.enc_dec),
     }
+    if cfg.first_k_dense:
+        p["dense_layers"] = _init_layers(gen, cfg, dtype, dev, cfg.first_k_dense, cross=False,
+                                         dense=True)
+    p["layers"] = _init_layers(gen, cfg, dtype, dev, cfg.n_layers - cfg.first_k_dense,
+                               cross=cfg.enc_dec)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
     if cfg.enc_dec:
@@ -175,7 +202,7 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
 def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's FFN: (y, the MoE's aux loss, or None for a dense FFN)."""
-    if cfg.moe is not None:
+    if "moe" in lp:
         y, moe_aux = moe_lib.apply_moe(lp["moe"], h, cfg)
         return y, moe_lib.moe_aux_loss(moe_aux, cfg)
     return apply_mlp(lp["mlp"], h, cfg.activation), None
@@ -196,6 +223,10 @@ def _seq_layer(cfg: ModelConfig, impl: str, x: torch.Tensor, lp: Params,
     # Megatron-style activation sequence sharding (launch-layer opt-in)
     x = shard(x, "batch", "act_seq", "embed")
     h = apply_norm(cfg.norm, lp["norm1"], x)
+    if cfg.attention == "mla":
+        x = x + attn.mla_prefill(lp["attn"], h, cfg, impl=impl)
+        y, layer_aux = _ffn(cfg, lp, apply_norm(cfg.norm, lp["norm2"], x))
+        return x + y, {}, aux if layer_aux is None else aux + layer_aux
     if cfg.attention == "none":
         st0 = ssm_lib.init_rwkv_state(cfg, b, x.device)
         y, st = ssm_lib.rwkv_time_mix_chunked(lp["time_mix"], h, st0, cfg,
@@ -411,6 +442,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         enc_out, enc_aux = _encode(params, cfg, frontend_embeds, impl)
     x = embed_tokens(params, cfg, tokens, frontend_embeds if not cfg.enc_dec else None)
     x = _positions(cfg, x)
+    if cfg.first_k_dense:
+        x, dense_aux = _run_stack(cfg, impl, True, x, params["dense_layers"], cfg.first_k_dense)
+        x, aux = _run_stack(cfg, impl, True, x, params["layers"],
+                            cfg.n_layers - cfg.first_k_dense)
+        return _logits(params, cfg, x), dense_aux + aux
     x, aux = _run_stack(cfg, impl, True, x, params["layers"], cfg.n_layers, enc_out)
     if enc_aux is not None:
         aux = aux + enc_aux
@@ -494,6 +530,7 @@ def init_decode_state(params: Params, cfg: ModelConfig, batch: int,
     runs the encoder over ``frontend_embeds`` (by ``impl``'s route) and
     precomputes the stacked cross-attention K/V."""
     check_supported(cfg)
+    _refuse_latent_cache(cfg, "decode")
     dev = params["embed"].device
     cross_kv = None
     if cfg.enc_dec:
@@ -589,6 +626,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cross-attention K/V.  The VLM's image tokens count as positions of the
     prompt and of the cache."""
     check_supported(cfg)
+    _refuse_latent_cache(cfg, "prefill")
     enc_out, cross_kv = None, None
     if cfg.enc_dec:
         enc_out, _ = _encode(params, cfg, frontend_embeds, impl)
@@ -659,6 +697,7 @@ def _decode_step_into(params: Params, cfg: ModelConfig, state: DecodeState,
     state shares them, so ``state`` is not reusable as the old state.  For
     callers that own their state (``launch/serve.py``,
     ``launch/scheduler.py``)."""
+    _refuse_latent_cache(cfg, "decode")
     x = params["embed"][token.long()][:, None, :]                    # (B,1,d)
     if not cfg.use_rope and cfg.attention != "none":
         x = x + sinusoidal_at(state.step, cfg.d_model)[:, None].to(x.dtype)
