@@ -19,6 +19,9 @@ range.  From the trace it prints one JSON line with:
   the host op that launched it began (kernels the autograd engine's thread
   launches during ``grad`` count there); ``kernel_names_by_span`` the same
   time by operation name, the five largest of each span;
+* ``host_ops_of_kernels``: for the eight largest device operations by name,
+  their time by the chain of host ops that launched them (the autograd
+  node outermost, the op that launched innermost), the five largest chains;
 * ``device_s_by_span``: the recorder's own ``device_s`` summed by path over
   the same rounds, to hold against ``kernels_by_span``;
 * ``counters``: the round records' counters summed over the same rounds
@@ -63,17 +66,34 @@ def split_interval(ranges, a, b):
     return dict(out)
 
 
+def op_chains(host_ops) -> dict:
+    """{correlation id: "outermost > ... > innermost"} of the host ops
+    ``(thread, start, end, name, correlation id)`` nested on one thread:
+    the outer two and the inner four, the middle of a longer chain cut to
+    "..."."""
+    out, stack = {}, []
+    for tid, a, b, name, corr in sorted(host_ops, key=lambda o: (o[0], o[1], -o[2])):
+        while stack and (stack[-1][0] != tid or stack[-1][1] <= a):
+            stack.pop()
+        stack.append((tid, b, name))
+        names = [n for _, _, n in stack]
+        out[corr] = " > ".join(names if len(names) <= 6 else names[:2] + ["..."] + names[-4:])
+    return out
+
+
 def analyse(events) -> dict:
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     cpu = torch.autograd.DeviceType.CPU
-    ranges, ops, kernels = [], {}, []
+    ranges, ops, kernels, host_ops = [], {}, [], []
     for e in events:
         if e.device_type() == cpu and e.is_user_annotation():
             ranges.append((e.start_ns(), e.end_ns(), e.name()))
         elif e.device_type() == cpu and e.linked_correlation_id() == 0:
             ops[e.correlation_id()] = e.start_ns()        # a host op, not a runtime call
+            host_ops.append((e.start_thread_id(), e.start_ns(), e.end_ns(), e.name(),
+                             e.correlation_id()))
         elif e.device_type() == cuda and not e.is_user_annotation():
             kernels.append((e.start_ns(), e.start_ns() + e.duration_ns(),
                             e.linked_correlation_id(), e.name()))
@@ -94,6 +114,8 @@ def analyse(events) -> dict:
     gaps.sort(key=lambda g: -g["s"])
     by_span = defaultdict(float)
     by_name = defaultdict(lambda: defaultdict(float))
+    chains = op_chains(host_ops)
+    by_op = defaultdict(lambda: defaultdict(float))
     unlinked = 0.0
     for a, b, corr, name in kernels:
         t = ops.get(corr)
@@ -103,6 +125,8 @@ def analyse(events) -> dict:
         path = innermost(ranges, t)
         by_span[path] += (b - a) * 1e-9
         by_name[path][name[:80]] += (b - a) * 1e-9
+        by_op[name[:80]][chains[corr]] += (b - a) * 1e-9
+    largest = sorted(by_op, key=lambda n: -sum(by_op[n].values()))[:8]
     return {"busy_s": sum(b - a for a, b in busy) * 1e-9,
             "idle_s": sum(idle.values()),
             "idle_by_span": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
@@ -111,6 +135,9 @@ def analyse(events) -> dict:
             "kernel_names_by_span": {
                 path: dict(sorted(names.items(), key=lambda kv: -kv[1])[:5])
                 for path, names in by_name.items()},
+            "host_ops_of_kernels": {
+                name: dict(sorted(by_op[name].items(), key=lambda kv: -kv[1])[:5])
+                for name in largest},
             "kernels_unlinked_s": unlinked}
 
 

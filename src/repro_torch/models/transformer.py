@@ -26,8 +26,15 @@ Parameters are the reference's pytree as nested dicts of tensors:
 ``"dense_layers"`` (the leading dense layers) beside ``"layers"`` where
 ``cfg.first_k_dense`` is set; every ``layers`` leaf is stacked over a
 leading ``L`` axis, each group over its own.  The layer loop is a
-Python loop over ``L`` that indexes those leaves (views, no copies) in
-place of ``lax.scan``.  ``cfg.remat`` checkpoints each layer of
+Python loop over ``L`` in place of ``lax.scan``; a stack takes its layers'
+weights as views from one ``unbind`` of each leaf along ``L``, not from one
+select a leaf and layer: the backward of the ``unbind`` is one ``stack`` of
+the ``L`` layer gradients, while each select's backward zero-fills a buffer
+of the whole stacked leaf for its slice and autograd sums the ``L`` buffers
+(``L`` fills and ``L - 1`` adds of the leaf a step, every element written by
+one layer).  On a mesh the ``L`` axis is never sharded, so a DTensor leaf
+unbinds into ``L`` DTensor views, each layer's FSDP shards gathered as it
+runs.  ``cfg.remat`` checkpoints each layer of
 :func:`forward`, the encoder's too, as the reference's ``jax.checkpoint``
 does, whenever a backward will run: ``torch.utils.checkpoint`` under plain
 autograd, and under a ``torch.func`` transform (the vmapped FL executor's
@@ -102,9 +109,17 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views of the stacked leaves (on a mesh,
+    """Layer ``i``'s parameters: views of the stacked leaves, or the
+    ``i``-th of a leaf's views that :func:`_unbind_layers` took (on a mesh,
     with their FSDP shards gathered)."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else gather_fsdp(v[i]))
+            for k, v in layers.items()}
+
+
+def _unbind_layers(layers: Params) -> Params:
+    """``layers`` with each stacked leaf replaced by the tuple of its layer
+    views from one ``unbind`` along ``L``."""
+    return {k: (_unbind_layers(v) if isinstance(v, dict) else torch.unbind(v, 0))
             for k, v in layers.items()}
 
 
@@ -348,17 +363,19 @@ def _run_stack(cfg: ModelConfig, impl: str, causal: bool, x: torch.Tensor,
                layers: Params, n: int, enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n`` stacked layers over a full sequence: (x, the layers' aux summed
-    in fp32).  Each layer is checkpointed by the route :func:`_remat`
-    picks, its aux with it."""
+    in fp32).  The layers' weights come from :func:`_unbind_layers`; each
+    layer is checkpointed by the route :func:`_remat` picks, its aux with
+    it."""
     aux = _zero_aux(x)
     route = _remat(cfg, x, layers)
+    views = _unbind_layers(layers)
 
     def body(h, lp, eo):
         out, _, a = _seq_layer(cfg, impl, h, lp, causal, eo)
         return out, a
 
     for i in range(n):
-        lp = layer_params(layers, i)
+        lp = layer_params(views, i)
         if route == "autograd":
             x, a = checkpoint(body, x, lp, enc_out, use_reentrant=False)
         elif route == "func":
